@@ -1,0 +1,13 @@
+"""d2slam_tpu_torch — the PyTorch/CUDA port of d2slam_tpu.
+
+Same sub-package layout and module names as ``d2slam_tpu``; each module
+here is the counterpart of the module of the same name there. The port
+imports ``torch`` and numpy only. Its entry points (``FeatureTracker``,
+``D2Estimator``, ``SuperPoint``) run on the CUDA card unless the caller
+passes ``device="cpu"``.
+
+Slice 1 covers the single-robot stereo VIO keyframe path: SuperPoint
+(with the hand-written Hopper stem kernel in ``csrc/``), LK, matching,
+the tracker, IMU preintegration, the sliding-window LM solver with
+marginalization, and the estimator.
+"""

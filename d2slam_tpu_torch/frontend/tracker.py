@@ -1,0 +1,295 @@
+"""Feature tracker: the host state machine turning stereo images into
+landmark-observation frames for the estimator.
+
+Counterpart of the stereo path of ``d2slam_tpu/frontend/tracker.py``
+(reference D2FeatureTracker, d2frontend/src/d2featuretracker.cpp):
+
+* both views go through ONE batched SuperPoint extraction (B=2); the
+  images upload as uint8 and are normalized on the device;
+* keypoints and validity come back to the host for the bookkeeping;
+  descriptors stay on the device, where the matching runs;
+* LK carries existing landmarks from the previous frame (trackLK
+  :472-621), radius-gated descriptor matching against the last keyframe
+  fills the gaps (matchLocalFeatures :1077-1294), epipolar matching
+  associates the right view (:658-753), and the keyframe decision
+  looks at parallax and tracked count (isKeyframe :754-775).
+
+The multi-view (quadcam) and RGB-D paths are not ported yet
+(ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from d2slam_tpu_torch.frontend.lk import lk_track_images
+from d2slam_tpu_torch.frontend.matching import (
+    match_descriptors_radius,
+    match_stereo_epipolar,
+)
+from d2slam_tpu_torch.frontend.superpoint import (
+    SuperPoint,
+    SuperPointConfig,
+    superpoint_extract,
+)
+from d2slam_tpu_torch.geometry.cameras import PinholeParams
+from d2slam_tpu_torch.utils.perf import PerfTracker
+from d2slam_tpu_torch.vins.types import CameraObservations, FrontendFrame
+
+
+@dataclasses.dataclass
+class TrackerConfig:
+    min_keyframe_parallax: float = 10.0       # px (reference kf gating)
+    min_tracked_for_nonkf: int = 40           # below -> force keyframe
+    match_ratio: float = 0.8
+    search_radius: float = 40.0               # px, radius-gated matching
+    stereo_ratio: float = 0.8
+    use_lk: bool = True
+    lk_levels: int = 3
+
+
+def _img_u8(img: np.ndarray) -> np.ndarray:
+    """Quantize an image (or stack) to uint8 for the upload. Float
+    inputs are [0, 1]; uint8 passes through."""
+    a = np.asarray(img)
+    if a.dtype == np.uint8:
+        return a
+    return np.clip(a * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# vectorized host association helpers
+# ---------------------------------------------------------------------------
+
+
+def _assoc_lk_vec(new_pts: np.ndarray, ok: np.ndarray,
+                  prev_ids: np.ndarray, kpts: np.ndarray,
+                  valid: np.ndarray, ids: np.ndarray,
+                  max_dist: float = 2.0) -> None:
+    """Assign LK-tracked landmark ids to the nearest extracted keypoint
+    (< max_dist px), one keypoint per landmark and one landmark per
+    keypoint, conflicts resolved min-distance-first. Mutates ``ids``."""
+    prev_ids = np.asarray(prev_ids)
+    cand = np.flatnonzero(ok & (prev_ids >= 0))
+    if not len(cand) or not len(kpts):
+        return
+    _, first = np.unique(prev_ids[cand], return_index=True)
+    cand = cand[np.sort(first)]
+    d = np.linalg.norm(kpts[None, :, :] - new_pts[cand, None, :], axis=2)
+    d = np.where((valid & (ids < 0))[None, :], d, np.inf)  # [nc, K]
+    j_near = np.argmin(d, axis=1)
+    d_near = d[np.arange(len(cand)), j_near]
+    good = np.flatnonzero(d_near < max_dist)
+    if not len(good):
+        return
+    good = good[np.argsort(d_near[good], kind="stable")]
+    _, keep = np.unique(j_near[good], return_index=True)
+    winners = good[keep]
+    ids[j_near[winners]] = prev_ids[cand[winners]]
+
+
+def _assign_matches_vec(idx: np.ndarray, ok: np.ndarray,
+                        src_ids: np.ndarray, ids: np.ndarray) -> None:
+    """Write matched source landmark ids onto still-unassigned target
+    keypoints; the lowest source index wins a contested target."""
+    sel = np.flatnonzero(ok)
+    if not len(sel):
+        return
+    tgt = idx[sel]
+    free = ids[tgt] < 0
+    sel, tgt = sel[free], tgt[free]
+    if not len(sel):
+        return
+    uniq_t, first = np.unique(tgt, return_index=True)
+    ids[uniq_t] = np.asarray(src_ids)[sel[first]]
+
+
+def _lookup_pts_vec(query_ids: np.ndarray, ref_ids: np.ndarray,
+                    ref_pts: np.ndarray):
+    """Vectorized id->point lookup: (found [Nq], pts [Nq, 2])."""
+    query_ids = np.asarray(query_ids)
+    ref_ids = np.asarray(ref_ids)
+    out = np.zeros((len(query_ids), ref_pts.shape[1] if len(ref_pts) else 2))
+    if not len(ref_ids) or not len(query_ids):
+        return np.zeros(len(query_ids), bool), out
+    order = np.argsort(ref_ids, kind="stable")
+    sids = ref_ids[order]
+    loc = np.searchsorted(sids, query_ids)
+    locc = np.minimum(loc, len(sids) - 1)
+    found = (query_ids >= 0) & (sids[locc] == query_ids)
+    out[found] = np.asarray(ref_pts)[order[locc[found]]]
+    return found, out
+
+
+class FeatureTracker:
+    def __init__(
+        self,
+        sp_params: Union[Dict, SuperPoint],
+        sp_cfg: SuperPointConfig,
+        cam_params: List[PinholeParams],
+        cfg: TrackerConfig = TrackerConfig(),
+        frame_rate: float = 8.0,
+        device=None,
+    ):
+        """sp_params: the SuperPoint parameter pytree (numpy, JAX
+        layout) or a ready ``SuperPoint``. ``device`` defaults to
+        ``cuda`` and raises without a card unless ``device="cpu"``."""
+        self.model = (sp_params if isinstance(sp_params, SuperPoint)
+                      else SuperPoint(sp_params, sp_cfg, device=device))
+        self.device = self.model.device
+        self.cams = cam_params
+        self.cfg = cfg
+        self.dt = 1.0 / frame_rate
+        self.perf = PerfTracker()
+        self._lm_ids = itertools.count(0)
+        self.prev: Dict = {}          # last processed frame data
+        self.last_kf: Dict = {}       # last keyframe data
+        self.frame_count = 0
+        self.landmark_count = 0
+
+    def extract(self, imgs: np.ndarray):
+        """Batched extraction of [B, H, W] images (float [0, 1] or u8):
+        u8 upload, normalization on the device. Returns the device
+        ``SuperPointOutput`` and host copies of (kpts, valid)."""
+        u8 = torch.from_numpy(_img_u8(imgs)).to(self.device)
+        out = superpoint_extract(self.model, u8.float() / 255.0)
+        return out, out.kpts.cpu().numpy(), out.valid.cpu().numpy()
+
+    def _lift(self, cam_idx: int, uv):
+        """Pixels -> unit rays for pinhole camera ``cam_idx`` (numpy)."""
+        cam = self.cams[cam_idx]
+        uv = np.asarray(uv, np.float64)
+        r = np.stack([
+            (uv[..., 0] - float(cam.cx)) / float(cam.fx),
+            (uv[..., 1] - float(cam.cy)) / float(cam.fy),
+            np.ones(uv.shape[:-1]),
+        ], axis=-1)
+        return r / np.maximum(np.linalg.norm(r, axis=-1, keepdims=True), 1e-12)
+
+    def _match(self, desc_a, pts_a, valid_a, desc_b, pts_b, valid_b,
+               radius: float):
+        idx, ok = match_descriptors_radius(
+            desc_a, desc_b, pts_a, pts_b, valid_a, valid_b,
+            radius=radius, ratio=self.cfg.match_ratio,
+        )
+        return idx.cpu().numpy(), ok.cpu().numpy()
+
+    def process_stereo(self, stamp: float, frame_id: int,
+                       img_left: np.ndarray, img_right: np.ndarray
+                       ) -> Optional[FrontendFrame]:
+        """Returns a FrontendFrame when this frame is a keyframe."""
+        imgL = np.asarray(img_left, np.float32)
+        imgR = np.asarray(img_right, np.float32)
+        with self.perf.stage("extract"):
+            outs, kpts, valid = self.extract(np.stack([imgL, imgR]))
+        with self.perf.stage("host"):
+            return self._associate(stamp, frame_id, imgL, outs, kpts, valid)
+
+    def _associate(self, stamp, frame_id, imgL, outs, kpts, valid):
+        kptsL, kptsR = kpts[0], kpts[1]
+        validL, validR = valid[0], valid[1]
+        descL, descR = outs.desc[0], outs.desc[1]
+
+        # ---- LK carry-over first: geometric short-baseline tracking is
+        # the trustworthy association layer; descriptor matching then
+        # only fills the gaps
+        matched_ids = -np.ones(len(kptsL), np.int64)
+        if self.cfg.use_lk and self.prev:
+            live = np.asarray(self.prev["valid"])
+            if live.any():
+                new_pts, ok = lk_track_images(
+                    self.prev["img"], imgL, self.prev["pts"], live,
+                    levels=self.cfg.lk_levels,
+                )
+                _assoc_lk_vec(new_pts, ok, self.prev["ids"], kptsL, validL,
+                              matched_ids)
+
+        # ---- descriptor match vs last keyframe for remaining gaps ----
+        if self.last_kf:
+            kf = self.last_kf
+            kf_ids_arr = np.asarray(kf["ids"])
+            taken = matched_ids[matched_ids >= 0]
+            kf_free = ~np.isin(kf_ids_arr, taken)
+            target_free = (matched_ids < 0) & validL
+            idx, ok = self._match(
+                kf["desc"], kf["pts"], kf["valid"] & kf_free,
+                descL, kptsL, target_free,
+                radius=self.cfg.search_radius,
+            )
+            _assign_matches_vec(idx, ok, kf_ids_arr, matched_ids)
+
+        # ---- new landmark ids ----
+        fresh = np.flatnonzero(validL & (matched_ids < 0))
+        if len(fresh):
+            base = next(self._lm_ids)
+            for _ in range(len(fresh) - 1):  # keep the counter in sync
+                next(self._lm_ids)
+            matched_ids[fresh] = base + np.arange(len(fresh))
+            self.landmark_count += len(fresh)
+
+        # ---- keyframe decision (reference isKeyframe) ----
+        tracked = 0
+        parallax = 0.0
+        if self.last_kf:
+            sel_v = np.flatnonzero(validL)
+            found, pts_kf = _lookup_pts_vec(
+                matched_ids[sel_v], self.last_kf["ids"],
+                np.asarray(self.last_kf["pts"]),
+            )
+            tracked = int(found.sum())
+            moves = np.linalg.norm(kptsL[sel_v[found]] - pts_kf[found], axis=1)
+            parallax = float(np.mean(moves)) if len(moves) else 1e9
+        is_keyframe = (
+            not self.last_kf
+            or parallax > self.cfg.min_keyframe_parallax
+            or tracked < self.cfg.min_tracked_for_nonkf
+        )
+
+        # ---- stereo association (epipolar band gated) ----
+        idxR, okR = match_stereo_epipolar(
+            descL, descR, kptsL, kptsR, validL, validR,
+            ratio=self.cfg.stereo_ratio,
+        )
+        idxR, okR = idxR.cpu().numpy(), okR.cpu().numpy()
+
+        # ---- ray velocities from previous positions ----
+        prev_ids_v = np.zeros(0, np.int64)
+        prev_pts_v = np.zeros((0, 2))
+        if self.prev:
+            pkeep = np.asarray(self.prev["ids"]) >= 0
+            prev_ids_v = np.asarray(self.prev["ids"])[pkeep]
+            prev_pts_v = np.asarray(self.prev["pts"])[pkeep]
+
+        self.prev = dict(img=imgL, pts=kptsL, ids=matched_ids, valid=validL,
+                         desc=descL)
+        self.frame_count += 1
+
+        if not is_keyframe:
+            return None
+
+        self.last_kf = dict(pts=kptsL, ids=matched_ids, valid=validL, desc=descL)
+
+        # ---- build FrontendFrame (unit rays via camera lift) ----
+        obs = []
+        selL = np.flatnonzero(validL)
+        raysL = self._lift(0, kptsL[selL])
+        velL = np.zeros_like(raysL)
+        found, prev_pt = _lookup_pts_vec(matched_ids[selL], prev_ids_v, prev_pts_v)
+        if found.any():
+            velL[found] = (raysL[found] - self._lift(0, prev_pt[found])) / self.dt
+        obs.append(CameraObservations(
+            cam_id=0, landmark_ids=matched_ids[selL], rays=raysL, ray_vels=velL,
+        ))
+        selR = np.flatnonzero(okR & validL)
+        if len(selR):
+            raysR = self._lift(1, kptsR[idxR[selR]])
+            obs.append(CameraObservations(
+                cam_id=1, landmark_ids=matched_ids[selR], rays=raysR,
+                ray_vels=np.zeros_like(raysR),
+            ))
+        return FrontendFrame(stamp=stamp, frame_id=frame_id, is_keyframe=True,
+                             observations=obs)

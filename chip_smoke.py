@@ -5,21 +5,34 @@
 Drives the port (``d2slam_tpu_torch``) only, with SuperPoint in bf16 so
 the hand-written stem kernel is on the path:
 
-  (a) builds every kernel from ``d2slam_tpu_torch/csrc`` and holds each
-      against its plain PyTorch version on the card, at the shapes the
-      main path gives it; times kernel, plain version and the one-call
-      library yardstick, and computes the bound from the shapes;
+  (a) builds every kernel from ``d2slam_tpu_torch/csrc`` (one compiler
+      per source, all started together) and holds each against its plain
+      PyTorch version on the card, at the shapes the main paths give it;
+      times kernel, plain version and, where one PyTorch call computes
+      the same function, that call, and computes the bound from the
+      shapes;
   (b) the golden stereo VIO scenario (CircleSim seed 7, 240x320, the
       trained weights in weights/superpoint_synth.npz, 16 frames), with
       the bf16 backbone (stem kernel) and the f32 backbone: asserts the
       keyframe count, ATE < 0.03 m and the median track length;
   (c) the main path at full width: 480x640, the default estimator and
-      SuperPoint configurations, 24 frames; the kernel launch counts of
-      this run go into the ``kernels`` line.
+      SuperPoint configurations, 24 frames;
+  (d) quadcam depth at full width: 4 Kannala-Brandt fisheyes 480x640
+      around a textured cylinder wall -> 4 virtual stereo pairs 240x320
+      -> block-matching kernel (max_disp 64, block 9) -> coloured point
+      clouds, 6 frames; asserts the wall's depth, the disparity RMS
+      against the analytic wall at the JAX package's golden set-up, and
+      two kernel launches per frame; one frame through the HitNet option;
+  (e) quadcam VIO: 4 outward 240x320 views per frame through the
+      multi-view tracker (one stem launch for the 4 views) into the
+      estimator, 16 frames: asserts >= 10 keyframes and ATE < 0.25 m.
 
-Every phase prints one line; any failure exits non-zero. The last two
-lines are the ``kernels`` JSON and the device JSON; the line before
-them is the card's name and power limit from nvidia-smi.
+The launch counts of (c), (d) and (e) go into the ``kernels`` line: each
+count is set to 0 just before its path runs and read just after.
+
+Every phase prints one line; any failure exits non-zero. The last three
+lines are the ``kernels`` JSON, the card's name and power limit from
+nvidia-smi, and the device JSON.
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -48,16 +62,47 @@ from d2slam_tpu_torch.frontend.superpoint import (  # noqa: E402
     load_params,
 )
 from d2slam_tpu_torch.frontend.tracker import FeatureTracker, TrackerConfig  # noqa: E402
-from d2slam_tpu_torch.geometry.cameras import PinholeParams  # noqa: E402
+from d2slam_tpu_torch.geometry.cameras import KBParams, PinholeParams  # noqa: E402
+from d2slam_tpu_torch.depth.fisheye_undist import remap_bilinear  # noqa: E402
+from d2slam_tpu_torch.depth.hitnet import HitNetConfig, hitnet_apply, hitnet_init  # noqa: E402
+from d2slam_tpu_torch.depth.quadcam import (  # noqa: E402
+    QuadcamConfig,
+    build_virtual_stereo,
+    cloud_in_body,
+    quadcam_depth,
+)
+from d2slam_tpu_torch.depth.stereo import (  # noqa: E402
+    block_match_disparity,
+    disparity,
+    points_from_disparity,
+)
+from d2slam_tpu_torch.ops import stereo_bm as bm  # noqa: E402
 from d2slam_tpu_torch.ops import superpoint_stem as stem  # noqa: E402
 from d2slam_tpu_torch.utils import np_lie  # noqa: E402
-from d2slam_tpu_torch.utils.render import render_blobs  # noqa: E402
-from d2slam_tpu_torch.utils.sim import CircleSim  # noqa: E402
+from d2slam_tpu_torch.utils.render import (  # noqa: E402
+    cylinder_wall_disparity,
+    make_signatures,
+    render_blobs,
+    render_cylinder_wall,
+)
+from d2slam_tpu_torch.utils.sim import (  # noqa: E402
+    CircleSim,
+    fisheye_ring_extrinsics,
+    quadcam_extrinsics,
+)
 from d2slam_tpu_torch.vins.estimator import D2Estimator  # noqa: E402
 
 WEIGHTS = os.path.join(REPO, "weights", "superpoint_synth.npz")
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 FLOP/s (data sheet)
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
+# non-fused f32 instructions/s: half the data sheet's 67 TFLOP/s, which
+# counts a fused multiply-add as two
+PEAK_F32_OPS = 33.5e12
+# block matcher, kernel vs plain version (same order of summation, so a
+# cost differs by rounding of the compiler's choices at most): integer
+# winners equal on 99.9 % of the pixels; where equal, costs and
+# sub-pixel disparity within these
+BM_AGREE, BM_COST_ATOL, BM_DISP_ATOL = 0.999, 1e-5, 1e-3
 # kernel vs plain version: bf16 output, so two bf16 ulps relative plus
 # a small absolute floor (the conv1a activation may round across one
 # bf16 boundary where the two sum in a different order)
@@ -65,6 +110,12 @@ STEM_ATOL, STEM_RTOL = 0.02, 0.016
 # golden-scenario ATE pin, both backbones: the JAX package's 0.03 m
 # (tests/test_golden_image_vio.py)
 GOLDEN_ATE = 0.03
+# quadcam pins of the JAX package: image-level quadcam VIO ATE
+# (tests/test_golden_quadcam_image.py), disparity RMS against the
+# analytic wall (tests/test_golden_ate.py), wall depth (tests/test_quadcam.py)
+GOLDEN_QUADCAM_IMAGE_ATE = 0.25
+GOLDEN_QUADCAM_DISP_RMS = 0.35
+WALL_RADIUS, WALL_DEPTH_RANGE = 5.0, (3.0, 7.5)
 
 
 def fail(msg):
@@ -95,9 +146,11 @@ def stem_library(img, k1, b1, k2, b2):
 
 
 def phase_kernels(params, dev):
-    """(a) build, check and time the stem kernel."""
+    """(a) build both kernels, then check and time the stem kernel."""
     t0 = time.perf_counter()
-    stem.build()
+    with ThreadPoolExecutor(2) as pool:   # one nvcc per source, together
+        for job in [pool.submit(stem.build), pool.submit(bm.build)]:
+            job.result()
     build_s = time.perf_counter() - t0
     wts = stem.pack_stem_weights(params["conv1a"]["w"], params["conv1a"]["b"],
                                  params["conv1b"]["w"], params["conv1b"]["b"], device=dev)
@@ -107,7 +160,7 @@ def phase_kernels(params, dev):
     b2 = wts.b2
     rng = np.random.default_rng(0)
     rows = {}
-    for (B, H, W) in [(2, 34, 50), (2, 240, 320), (2, 480, 640)]:
+    for (B, H, W) in [(2, 34, 50), (2, 240, 320), (4, 240, 320), (2, 480, 640)]:
         img = torch.as_tensor(rng.uniform(0, 1, (B, H, W)).astype(np.float32), device=dev)
         out = stem.superpoint_stem(img, wts)
         ref = stem.stem_plain(img, *wts)
@@ -141,20 +194,108 @@ def phase_kernels(params, dev):
     return rows
 
 
-def run_sequence(params, dev, H, W, fx, n_frames, cfg, sp_cfg, tr_cfg, n_landmarks):
-    """Stereo VIO over the CircleSim scenario; returns the metrics."""
-    sim = CircleSim(seed=7, baseline=0.2, n_landmarks=n_landmarks)
+def textured_pairs(N, H, W, shift, dev, seed):
+    """N rectified pairs [N, H, W] on the card: a smoothed random
+    texture, the right view shifted by ``shift`` px, plus noise."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.rand((N, 1, H, W + 64), generator=g, device=dev)
+    for _ in range(2):
+        base = torch.nn.functional.avg_pool2d(base, 3, stride=1, padding=1)
+    base = base[:, 0]
+    left = base[..., 16:16 + W].contiguous()
+    right = base[..., 16 + shift:16 + shift + W]
+    right = right + 0.01 * torch.randn(right.shape, generator=g, device=dev)
+    return left, right.contiguous()
+
+
+def bm_compare(out, ref, region, what):
+    """Kernel outputs against the plain version's on one region: the
+    fraction of equal winners and the largest error where they agree."""
+    (kd, kb, kc, ks), (pd, pb, pc, ps) = ([x[region] for x in o] for o in (out, ref))
+    same = kb == pb
+    agree = float(same.float().mean())
+    errs = {n: float((a - b).abs()[same].max()) if bool(same.any()) else 0.0
+            for n, a, b in (("cost", kc, pc), ("second", ks, ps), ("disp", kd, pd))}
+    if not all(bool(torch.isfinite(x).all()) for x in (kd, kc, ks)):
+        fail(f"stereo_bm output not finite ({what})")
+    if (agree < BM_AGREE or errs["cost"] > BM_COST_ATOL
+            or errs["second"] > BM_COST_ATOL or errs["disp"] > BM_DISP_ATOL):
+        fail(f"stereo_bm disagrees with bm_plain ({what}): winners agree on "
+             f"{agree:.6f}, max errors {errs}")
+    return agree, max(errs.values())
+
+
+def phase_bm_kernel(dev):
+    """(a, block matcher) check the kernel against ``bm_plain`` at every
+    listed shape, forward and reverse, the border columns on their own;
+    time it at the frame's shapes."""
+    rows = {}
+    cases = [(1, 37, 70, 24, 7, 5), (4, 240, 320, 64, 9, 10), (8, 240, 320, 64, 9, 10),
+             (1, 480, 640, 64, 9, 10), (1, 800, 1280, 64, 9, 10)]
+    for seed, (N, H, W, D, block, shift) in enumerate(cases):
+        left, right = textured_pairs(N, H, W, shift, dev, seed)
+        r = block // 2
+        row = dict(shape=[N, H, W], max_disp=D, block=block, agree=1.0, max_abs_err=0.0)
+        for reverse in (False, True):
+            a, b = (right, left) if reverse else (left, right)
+            out = bm.stereo_bm(a, b, D, block, reverse)
+            ref = bm.bm_plain(a, b, D, block, reverse)
+            torch.cuda.synchronize()
+            for name, region in (("all", np.s_[...]), ("right r columns", np.s_[..., -r:]),
+                                 ("left max_disp columns", np.s_[..., :D])):
+                agree, err = bm_compare(out, ref, region,
+                                        f"{N}x{H}x{W} reverse={reverse} {name}")
+                row["agree"] = min(row["agree"], agree)
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+        if (H, W) == (240, 320):
+            t_ops = bm.bm_ops(N, H, W, D, block) / PEAK_F32_OPS * 1e3
+            t_bytes = bm.bm_bytes(N, H, W) / PEAK_BYTES * 1e3
+            row.update(
+                ms=time_ms(lambda: bm.stereo_bm(left, right, D, block)),
+                plain_ms=time_ms(lambda: bm.bm_plain(left, right, D, block), iters=3, warmup=1),
+                # no single PyTorch call computes this function; the two
+                # whole matchers (both passes and the checks) side by side
+                # are the honest comparison
+                fused_ms=time_ms(lambda: bm.block_match_disparity_fused(left, right, D, block)),
+                cost_volume_ms=time_ms(lambda: block_match_disparity(left, right, D, block),
+                                       iters=10, warmup=2),
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                gop=bm.bm_ops(N, H, W, D, block) / 1e9,
+                mbytes=bm.bm_bytes(N, H, W) / 1e6,
+            )
+        rows[f"{N}x{H}x{W}"] = row
+    print("phase a (stereo_bm kernel check): " + json.dumps(
+        {"tolerance": f"winners equal on >= {BM_AGREE:.1%} of the pixels; where equal, "
+                      f"|cost|, |second| <= {BM_COST_ATOL}, |disp| <= {BM_DISP_ATOL}",
+         "stereo_bm": rows}), flush=True)
+    return rows
+
+
+def run_sequence(params, dev, H, W, fx, n_frames, cfg, sp_cfg, tr_cfg, n_landmarks,
+                 quadcam=False):
+    """VIO over the CircleSim scenario, with the stereo rig or (``quadcam``)
+    the ring of 4 outward views; returns the metrics."""
+    if quadcam:
+        sim = CircleSim(seed=7, n_landmarks=n_landmarks, extrinsics=quadcam_extrinsics(),
+                        fov_cos=0.5)
+    else:
+        sim = CircleSim(seed=7, baseline=0.2, n_landmarks=n_landmarks)
     inten = sim.rng.uniform(0.5, 1.0, len(sim.lms))
-    cams = [PinholeParams.make(fx, fx, W / 2, H / 2) for _ in range(2)]
+    # distinctive appearance per landmark, for the cross-view association
+    sigs = make_signatures(len(sim.lms), seed=9) if quadcam else None
+    n_cams = len(sim.ext)
+    cams = [PinholeParams.make(fx, fx, W / 2, H / 2) for _ in range(n_cams)]
     model = SuperPoint(params, sp_cfg, device=dev)
-    tracker = FeatureTracker(model, sp_cfg, cams, tr_cfg, frame_rate=sim.frame_hz)
+    tracker = FeatureTracker(model, sp_cfg, cams, tr_cfg, frame_rate=sim.frame_hz,
+                             extrinsics=sim.ext)
     est = D2Estimator(cfg, sim.ext, device=dev)
     for (t, a, g) in sim.imu_samples(-0.3, 0.0):
         est.input_imu(t, a, g)
     # warm the extraction once (cuDNN plans, the kernel's first load) and
     # build the native LK, so per-frame times are steady-state; the warm
     # launch is not counted
-    tracker.extract(np.zeros((2, H, W), np.float32))
+    tracker.extract(np.zeros((n_cams, H, W), np.float32))
     lk.build()
     torch.cuda.synchronize()
     stem.launches = 0
@@ -169,9 +310,10 @@ def run_sequence(params, dev, H, W, fx, n_frames, cfg, sp_cfg, tr_cfg, n_landmar
         t_prev = t
         pose_gt, _ = sim.gt_pose(t)
         imgs = [render_blobs(sim.lms, np_lie.pose_compose(pose_gt, sim.ext[c]),
-                             fx, fx, W / 2, H / 2, H, W, intensities=inten)
-                for c in range(2)]
-        ff = tracker.process_stereo(t, k, imgs[0], imgs[1])
+                             fx, fx, W / 2, H / 2, H, W, intensities=inten, signatures=sigs)
+                for c in range(n_cams)]
+        ff = (tracker.process_quadcam(t, k, imgs) if quadcam
+              else tracker.process_stereo(t, k, imgs[0], imgs[1]))
         if ff is None:
             continue
         if k == n_frames - 1 and est.solve_count:
@@ -236,18 +378,141 @@ def profile_estimator(est, ff):
     )
 
 
-def golden_config():
-    """Estimator config of tests/test_golden_image_vio.py:46-53."""
+def golden_config(num_cams=2, lm_slots=128, measurements=512):
+    """Estimator config of the JAX package's golden image tests
+    (tests/test_golden_image_vio.py; with 4 cameras, 160 slots and 640
+    measurements, tests/test_golden_quadcam_image.py)."""
     cfg = D2Config()
+    cfg.num_cams = num_cams
     e = cfg.estimator
     e.max_sld_win_size = 8
     e.min_solve_frames = 4
-    e.max_lm_slots = 128
-    e.max_solve_measurements = 512
+    e.max_lm_slots = lm_slots
+    e.max_solve_measurements = measurements
     e.max_imu_samples = 128
     e.max_solver_iters = 5
     e.focal_length = 220.0
     return cfg
+
+
+def golden_disparity_rms(dev):
+    """Pair 0's disparity RMS against the analytic wall at the set-up
+    and on the selection of the JAX package's golden test: fisheyes
+    240x320 with f = 95, virtual views 120x160, max_disp 32, block 7."""
+    ext = fisheye_ring_extrinsics(0.3)
+    fish = [KBParams.make(95.0, 95.0, 160.0, 120.0, k2=0.005) for _ in range(4)]
+    cfg = QuadcamConfig(out_hw=(120, 160), min_z=1.0, max_z=20.0, max_disp=32, block=7)
+    pairs = build_virtual_stereo(fish, ext, cfg, device=dev)
+    imgs = [render_cylinder_wall(fish[i], ext[i], (240, 320), WALL_RADIUS, seed=7)
+            for i in range(4)]
+    pts, ok = quadcam_depth(imgs, pairs, cfg, device=dev)[0]
+    ok = ok.cpu().numpy()
+    z = pts[..., 2].cpu().numpy()
+    disp = np.where(ok, pairs[0].focal * pairs[0].baseline / np.maximum(z, 1e-6), 0.0)
+    disp_gt = cylinder_wall_disparity(pairs[0].focal, pairs[0].baseline, ext[0], (120, 160),
+                                      WALL_RADIUS)
+    sel = ok & (disp > 0.5) & (disp_gt < cfg.max_disp - 1)
+    sel[:, :8] = False  # left occlusion band
+    rms = float(np.sqrt(np.mean((disp[sel] - disp_gt[sel]) ** 2))) if sel.any() else float("nan")
+    return rms, float(sel.mean())
+
+
+def phase_quadcam_depth(dev, n_frames=6):
+    """(d) the quadcam depth path at full width."""
+    rms, sel = golden_disparity_rms(dev)
+    if not (sel > 0.3 and rms < GOLDEN_QUADCAM_DISP_RMS):
+        fail(f"quadcam disparity RMS {rms} px on {sel:.2f} of the pixels "
+             f"(pin {GOLDEN_QUADCAM_DISP_RMS} px on > 0.3)")
+
+    HF, WF = 480, 640
+    ext = fisheye_ring_extrinsics(0.3)
+    fish = [KBParams.make(190.0, 190.0, WF / 2, HF / 2, k2=0.005) for _ in range(4)]
+    cfg = QuadcamConfig(out_hw=(240, 320), min_z=1.0, max_z=20.0)
+    pairs = build_virtual_stereo(fish, ext, cfg, device=dev)
+    tints = np.array([[1.0, 0.6, 0.6], [0.6, 1.0, 0.6], [0.6, 0.6, 1.0], [1.0, 1.0, 0.6]],
+                     np.float32)
+    # a new wall texture every frame, rendered before the timed loop
+    frames = []
+    for k in range(n_frames):
+        imgs = np.stack([render_cylinder_wall(fish[i], ext[i], (HF, WF), WALL_RADIUS, seed=k)
+                         for i in range(4)])
+        frames.append((imgs, imgs[..., None] * tints[:, None, None, :]))
+    quadcam_depth(frames[0][0], pairs, cfg, color_images=frames[0][1], device=dev)  # warm
+    torch.cuda.synchronize()
+
+    bm.launches = 0
+    medians, valid_share, n_points, frame_ms = [], [], 0, []
+    for imgs, colors in frames:
+        t0 = time.perf_counter()
+        out = quadcam_depth(imgs, pairs, cfg, color_images=colors, device=dev)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        qualified = 0
+        for k, (pts, ok, tex) in enumerate(out):
+            share = float(ok.float().mean())
+            valid_share.append(share)
+            if (pts.shape != (240, 320, 3) or tex.shape != (240, 320, 3)
+                    or not bool(torch.isfinite(pts[ok]).all())
+                    or cloud_in_body(pairs[k], pts).shape != pts.shape):
+                fail(f"quadcam pair {k}: bad cloud")
+            if share < 0.05:
+                continue
+            med = float(pts[..., 2][ok].median())
+            medians.append(med)
+            if not WALL_DEPTH_RANGE[0] < med < WALL_DEPTH_RANGE[1]:
+                fail(f"quadcam pair {k}: median depth {med} m outside {WALL_DEPTH_RANGE}")
+            qualified += 1
+            n_points += int(ok.sum())
+        if not qualified:
+            fail("no quadcam pair produced valid depth")
+    launches = bm.launches
+    if launches != 2 * n_frames:
+        fail(f"stereo_bm launches {launches} != 2 x {n_frames} frames")
+
+    # the frame's stages, timed apart on the last frame's tensors
+    t0 = time.perf_counter()
+    imgs, colors = (torch.as_tensor(x, device=dev) for x in frames[-1])
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    li, ri = [p.cam_left for p in pairs], [p.cam_right for p in pairs]
+    maps_l = torch.stack([p.map_left for p in pairs])
+    src = torch.cat([imgs[li], imgs[ri]] + [colors[li][..., c] for c in range(3)])
+    maps = torch.cat([maps_l, torch.stack([p.map_right for p in pairs])] + [maps_l] * 3)
+    views = remap_bilinear(src, maps)
+    left, right = views[:4].contiguous(), views[4:8].contiguous()
+    disp, valid = disparity(left, right, cfg.max_disp, cfg.block)
+    stage_ms = dict(
+        upload_ms=upload_ms, upload_mbytes=(imgs.nbytes + colors.nbytes) / 1e6,
+        remap_ms=time_ms(lambda: remap_bilinear(src, maps), iters=20),
+        disparity_ms=time_ms(lambda: disparity(left, right, cfg.max_disp, cfg.block), iters=20),
+        points_ms=time_ms(lambda: points_from_disparity(
+            disp, valid, pairs[0].focal, pairs[0].baseline, 160.0, 120.0, 1.0, 20.0), iters=20),
+    )
+
+    # one frame through the HitNet option (configuration network, seeded)
+    hcfg = HitNetConfig()
+    hparams = hitnet_init(torch.Generator().manual_seed(0), hcfg, device=dev)
+    seen = {}
+
+    def apply(p, lft, rgt):
+        seen["disp"] = hitnet_apply(p, lft[..., None], rgt[..., None], hcfg)
+        return seen["disp"]
+
+    quadcam_depth(frames[0][0], pairs, cfg, hitnet=(apply, hparams), device=dev)
+    hd = seen["disp"]
+    if (hd.shape != (4, 240, 320) or not bool(torch.isfinite(hd).all())
+            or float(hd.min()) < 0.0):
+        fail(f"HitNet disparity: shape {tuple(hd.shape)}, min {float(hd.min())}")
+
+    res = dict(frames=n_frames, bm_launches=launches, golden_disp_rms_px=rms,
+               golden_selected=sel, median_depth_m=[min(medians), max(medians)],
+               valid_share=[min(valid_share), max(valid_share)],
+               points_per_frame=n_points / n_frames,
+               frame_ms_mean=float(np.mean(frame_ms)), frame_ms_median=float(np.median(frame_ms)),
+               hitnet_disp_max=float(hd.max()), **stage_ms)
+    print("phase d (quadcam depth, 4 fisheyes 480x640 -> 4 pairs 240x320): "
+          + json.dumps(res), flush=True)
+    return res
 
 
 def main():
@@ -256,6 +521,7 @@ def main():
     dev = torch.device("cuda")
     params = load_params(WEIGHTS)
     kernel_rows = phase_kernels(params, dev)
+    bm_rows = phase_bm_kernel(dev)
 
     res = {}
     for cdt in ("bfloat16", "float32"):
@@ -286,19 +552,47 @@ def main():
     if res["stem_launches"] != res["frames"]:
         fail(f"stem launches {res['stem_launches']} != frames {res['frames']}")
 
+    depth = phase_quadcam_depth(dev)
+
+    sp_cfg = SuperPointConfig(max_keypoints=150, threshold=0.010, nms_radius=4,
+                              compute_dtype="bfloat16")
+    quad = run_sequence(
+        params, dev, 240, 320, 220.0, 16, golden_config(4, 160, 640), sp_cfg,
+        TrackerConfig(min_keyframe_parallax=4.0, search_radius=30.0),
+        n_landmarks=220, quadcam=True)
+    print("phase e (quadcam VIO, 4 views 240x320, bf16 stem): " + json.dumps(quad), flush=True)
+    if (quad["keyframes"] < 10 or not quad["ate_m"] < GOLDEN_QUADCAM_IMAGE_ATE
+            or not quad["finite"]):
+        fail(f"quadcam VIO out of its pins: {quad}")
+    if quad["stem_launches"] != quad["frames"]:
+        fail(f"stem launches {quad['stem_launches']} != frames {quad['frames']}")
+
     big = kernel_rows["2x480x640"]
+    frame = bm_rows["4x240x320"]   # the four pairs of a quadcam frame
     kernels = [{
         "name": "superpoint_stem",
         "route": "cuda",
         "source": "d2slam_tpu_torch/csrc/superpoint_stem.cu",
         "replaces": "d2slam_tpu/ops/superpoint_stem_pallas.py:51",
-        "launches": res["stem_launches"],
+        "launches": res["stem_launches"] + quad["stem_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"],
         "library_ms": big["library_ms"],
+    }, {
+        "name": "stereo_bm",
+        "route": "cuda",
+        "source": "d2slam_tpu_torch/csrc/stereo_bm.cu",
+        "replaces": "d2slam_tpu/ops/stereo_bm_pallas.py:35",
+        "launches": depth["bm_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in bm_rows.values()),
+        "ms": frame["ms"],
+        "plain_ms": frame["plain_ms"],
+        "bound_ms": frame["bound_ms"],
+        "bound_by": frame["bound_by"],
+        "library_ms": None,   # no single PyTorch call computes it
     }]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -10,4 +10,10 @@ Slice 1 covers the single-robot stereo VIO keyframe path: SuperPoint
 (with the hand-written Hopper stem kernel in ``csrc/``), LK, matching,
 the tracker, IMU preintegration, the sliding-window LM solver with
 marginalization, and the estimator.
+
+The quadcam configuration is covered as well: the seven camera models and
+kalibr camchains, fisheye-to-virtual-pinhole remap tables, stereo
+disparity with the hand-written Hopper block-matching kernel, the
+configuration HitNet, the quadcam depth pipeline (``depth/``), and the
+tracker's multi-view path.
 """

@@ -1,11 +1,12 @@
-"""Feature tracker: the host state machine turning stereo images into
+"""Feature tracker: the host state machine turning images into
 landmark-observation frames for the estimator.
 
-Counterpart of the stereo path of ``d2slam_tpu/frontend/tracker.py``
-(reference D2FeatureTracker, d2frontend/src/d2featuretracker.cpp):
+Counterpart of ``d2slam_tpu/frontend/tracker.py`` (reference
+D2FeatureTracker, d2frontend/src/d2featuretracker.cpp). Stereo path:
 
-* both views go through ONE batched SuperPoint extraction (B=2); the
-  images upload as uint8 and are normalized on the device;
+* all views of a frame go through ONE batched SuperPoint extraction
+  (B=2 for stereo, B=V for a multi-view rig); the images upload as
+  uint8 and are normalized on the device;
 * keypoints and validity come back to the host for the bookkeeping;
   descriptors stay on the device, where the matching runs;
 * LK carries existing landmarks from the previous frame (trackLK
@@ -14,8 +15,12 @@ Counterpart of the stereo path of ``d2slam_tpu/frontend/tracker.py``
   associates the right view (:658-753), and the keyframe decision
   looks at parallax and tracked count (isKeyframe :754-775).
 
-The multi-view (quadcam) and RGB-D paths are not ported yet
-(ROADMAP.md).
+Multi-view path (FOURCORNER_FISHEYE quadcam, :121-133): per-view
+temporal tracking as above, then descriptor matching between adjacent
+views gated by positions predicted through the camera extrinsics; the
+matched features of several views are unified into one landmark id.
+
+The RGB-D path and the learned matcher are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from d2slam_tpu_torch.frontend.superpoint import (
     superpoint_extract,
 )
 from d2slam_tpu_torch.geometry.cameras import PinholeParams
+from d2slam_tpu_torch.utils import np_lie
 from d2slam_tpu_torch.utils.perf import PerfTracker
 from d2slam_tpu_torch.vins.types import CameraObservations, FrontendFrame
 
@@ -134,20 +140,32 @@ class FeatureTracker:
         cfg: TrackerConfig = TrackerConfig(),
         frame_rate: float = 8.0,
         device=None,
+        extrinsics=None,
     ):
         """sp_params: the SuperPoint parameter pytree (numpy, JAX
         layout) or a ready ``SuperPoint``. ``device`` defaults to
-        ``cuda`` and raises without a card unless ``device="cpu"``."""
+        ``cuda`` and raises without a card unless ``device="cpu"``.
+
+        cam_params: per camera a ``PinholeParams`` or any object with
+        ``lift`` / ``project`` methods (``geometry.kalibr.KalibrCamera``).
+
+        extrinsics: [C, 7] body_T_cam, required for multi-view (quadcam)
+        cross-view association, which predicts feature positions through
+        the relative camera rotations (reference matchLocalFeatures
+        prediction_using_extrinsic)."""
         self.model = (sp_params if isinstance(sp_params, SuperPoint)
                       else SuperPoint(sp_params, sp_cfg, device=device))
         self.device = self.model.device
         self.cams = cam_params
         self.cfg = cfg
         self.dt = 1.0 / frame_rate
+        self.ext = None if extrinsics is None else np.asarray(extrinsics, np.float64)
         self.perf = PerfTracker()
         self._lm_ids = itertools.count(0)
         self.prev: Dict = {}          # last processed frame data
         self.last_kf: Dict = {}       # last keyframe data
+        self.prev_mv: Dict[int, Dict] = {}     # per-view (multi-view rig)
+        self.last_kf_mv: Dict[int, Dict] = {}  # per-view (multi-view rig)
         self.frame_count = 0
         self.landmark_count = 0
 
@@ -160,8 +178,13 @@ class FeatureTracker:
         return out, out.kpts.cpu().numpy(), out.valid.cpu().numpy()
 
     def _lift(self, cam_idx: int, uv):
-        """Pixels -> unit rays for pinhole camera ``cam_idx`` (numpy)."""
+        """Pixels -> unit rays for camera ``cam_idx`` (numpy). Dispatches
+        on the camera object, so fisheye chains (KalibrCamera) work
+        beside bare PinholeParams (reference liftProjective); the bare
+        pinhole has no distortion here and runs in float64 numpy."""
         cam = self.cams[cam_idx]
+        if hasattr(cam, "lift"):
+            return cam.lift(torch.as_tensor(np.asarray(uv, np.float32))).numpy()
         uv = np.asarray(uv, np.float64)
         r = np.stack([
             (uv[..., 0] - float(cam.cx)) / float(cam.fx),
@@ -169,6 +192,21 @@ class FeatureTracker:
             np.ones(uv.shape[:-1]),
         ], axis=-1)
         return r / np.maximum(np.linalg.norm(r, axis=-1, keepdims=True), 1e-12)
+
+    def _project(self, cam_idx: int, rays):
+        """Camera-frame rays -> [N, 2] pixels for camera ``cam_idx``
+        (the validity mask of a project function is dropped: callers
+        gate on the ray's z)."""
+        cam = self.cams[cam_idx]
+        if hasattr(cam, "project"):
+            return cam.project(torch.as_tensor(np.asarray(rays, np.float32)))[0].numpy()
+        rays = np.asarray(rays, np.float64)
+        z = np.maximum(np.abs(rays[..., 2]), 1e-9) * np.sign(
+            np.where(rays[..., 2] == 0, 1.0, rays[..., 2]))
+        return np.stack([
+            float(cam.fx) * rays[..., 0] / z + float(cam.cx),
+            float(cam.fy) * rays[..., 1] / z + float(cam.cy),
+        ], axis=-1)
 
     def _match(self, desc_a, pts_a, valid_a, desc_b, pts_b, valid_b,
                radius: float):
@@ -293,3 +331,189 @@ class FeatureTracker:
             ))
         return FrontendFrame(stamp=stamp, frame_id=frame_id, is_keyframe=True,
                              observations=obs)
+
+    # ------------------------------------------------------------------
+    # multi-view (FOURCORNER_FISHEYE quadcam) tracking
+    # ------------------------------------------------------------------
+
+    def process_quadcam(self, stamp: float, frame_id: int,
+                        imgs: List[np.ndarray]) -> Optional[FrontendFrame]:
+        """4-view omnidirectional tracking (reference FOURCORNER_FISHEYE
+        path, d2featuretracker.cpp:121-133: per-view temporal track, then
+        adjacent-pair cross-view association 0-1, 1-2, 2-3, 0-3).
+        ``imgs`` are the undistorted virtual-pinhole views; adjacency is
+        the camera ring."""
+        V = len(imgs)
+        ring = [(v, (v + 1) % V) for v in range(V)]
+        return self.process_multiview(stamp, frame_id, imgs, ring)
+
+    def process_rgbd(self, stamp: float, frame_id: int, img, depth):
+        raise NotImplementedError(
+            "the RGB-D path (reference PINHOLE_DEPTH) is not ported yet")
+
+    def process_multiview(self, stamp: float, frame_id: int,
+                          imgs: List[np.ndarray], adjacency
+                          ) -> Optional[FrontendFrame]:
+        """General N-view tracking with cross-view landmark unification.
+
+        Per view: SuperPoint (one batched extraction across the views
+        when they share a shape), LK carry-over from the previous frame,
+        descriptor match against the last keyframe. Cross-view:
+        descriptor match gated by extrinsic-predicted positions
+        (reference matchLocalFeatures prediction_using_extrinsic,
+        d2featuretracker.cpp:658-753); matched features across views are
+        union-found into ONE landmark id."""
+        imgs = [np.asarray(im, np.float32) for im in imgs]
+        with self.perf.stage("extract"):
+            if len({im.shape for im in imgs}) == 1:
+                outs, kpts, valid = self.extract(np.stack(imgs))
+                per_view = [(kpts[v], outs.desc[v], valid[v]) for v in range(len(imgs))]
+            else:
+                per_view = []
+                for im in imgs:
+                    outs, kpts, valid = self.extract(im[None])
+                    per_view.append((kpts[0], outs.desc[0], valid[0]))
+        with self.perf.stage("host"):
+            return self._associate_multiview(stamp, frame_id, imgs, per_view, adjacency)
+
+    def _associate_multiview(self, stamp, frame_id, imgs, per_view, adjacency):
+        V = len(imgs)
+        views = []
+        moves_all: List[float] = []
+        tracked_tot = 0
+        for v in range(V):
+            res = self._track_view_temporal(v, imgs[v], *per_view[v])
+            views.append(res)
+            tracked_tot += res["tracked"]
+            moves_all.extend(res["moves"])
+
+        # ---- cross-view association (union-find over (view, idx)) ----
+        parent: Dict = {}
+
+        def find(x):
+            while parent.setdefault(x, x) != x:
+                parent[x] = parent[parent[x]]
+                x = parent[x]
+            return x
+
+        for (a, b) in adjacency:
+            va, vb = views[a], views[b]
+            if not va["valid"].any() or not vb["valid"].any():
+                continue
+            pred = self._predict_cross_view(a, b, va["kpts"])
+            infront = pred[:, 2] > 0
+            idx, ok = self._match(
+                va["desc"], pred[:, :2], va["valid"] & infront,
+                vb["desc"], vb["kpts"], vb["valid"],
+                radius=self.cfg.search_radius,
+            )
+            for i in np.flatnonzero(ok):
+                parent[find((a, int(i)))] = find((b, int(idx[i])))
+
+        # one landmark id per union group: an existing temporal id if
+        # any member carries one, else a fresh id
+        groups: Dict = {}
+        for v in range(V):
+            for j in np.flatnonzero(views[v]["valid"]):
+                groups.setdefault(find((v, int(j))), []).append((v, int(j)))
+        for members in groups.values():
+            ids = [views[v]["ids"][j] for (v, j) in members
+                   if views[v]["ids"][j] >= 0]
+            lid = min(ids) if ids else next(self._lm_ids)
+            if not ids:
+                self.landmark_count += 1
+            for (v, j) in members:
+                views[v]["ids"][j] = lid
+
+        # ---- keyframe decision (reference isKeyframe) ----
+        parallax = float(np.mean(moves_all)) if moves_all else 1e9
+        is_keyframe = (
+            not self.last_kf_mv
+            or parallax > self.cfg.min_keyframe_parallax
+            or tracked_tot < self.cfg.min_tracked_for_nonkf
+        )
+
+        for v in range(V):
+            self.prev_mv[v] = dict(
+                img=views[v]["img"], pts=views[v]["kpts"], ids=views[v]["ids"],
+                valid=views[v]["valid"], desc=views[v]["desc"],
+            )
+        self.frame_count += 1
+        if not is_keyframe:
+            return None
+        for v in range(V):
+            self.last_kf_mv[v] = dict(
+                pts=views[v]["kpts"], ids=views[v]["ids"],
+                valid=views[v]["valid"], desc=views[v]["desc"],
+            )
+
+        obs = []
+        for v in range(V):
+            sel = np.flatnonzero(views[v]["valid"])
+            if not len(sel):
+                continue
+            rays = np.asarray(self._lift(v, views[v]["kpts"][sel]))
+            vel = np.zeros_like(rays)
+            found, prev_pt = _lookup_pts_vec(
+                views[v]["ids"][sel], views[v]["prev_ids"], views[v]["prev_pts"])
+            if found.any():  # ONE batched lift for all carried features
+                vel[found] = (rays[found] - self._lift(v, prev_pt[found])) / self.dt
+            obs.append(CameraObservations(
+                cam_id=v, landmark_ids=views[v]["ids"][sel], rays=rays, ray_vels=vel,
+            ))
+        return FrontendFrame(stamp=stamp, frame_id=frame_id, is_keyframe=True,
+                             observations=obs)
+
+    def _track_view_temporal(self, v: int, img_now, kpts, desc, valid) -> Dict:
+        """One view's temporal association: LK carry-over first, then
+        descriptor match vs the view's last keyframe (the layering of
+        ``process_stereo``; reference track(frame) per view)."""
+        ids = -np.ones(len(kpts), np.int64)
+        prev = self.prev_mv.get(v)
+        if self.cfg.use_lk and prev and prev["valid"].any():
+            new_pts, ok = lk_track_images(
+                prev["img"], img_now, prev["pts"], prev["valid"],
+                levels=self.cfg.lk_levels,
+            )
+            _assoc_lk_vec(new_pts, ok, prev["ids"], kpts, valid, ids)
+
+        kf = self.last_kf_mv.get(v)
+        tracked, moves = 0, []
+        if kf:
+            kf_ids = kf["ids"]
+            kf_free = ~np.isin(kf_ids, ids[ids >= 0])
+            idx, ok = self._match(
+                kf["desc"], kf["pts"], kf["valid"] & kf_free,
+                desc, kpts, (ids < 0) & valid,
+                radius=self.cfg.search_radius,
+            )
+            _assign_matches_vec(idx, ok, kf_ids, ids)
+
+            keep = kf_ids >= 0
+            sel_v = np.flatnonzero(valid)
+            found, pts_kf = _lookup_pts_vec(ids[sel_v], kf_ids[keep], kf["pts"][keep])
+            tracked = int(found.sum())
+            moves = np.linalg.norm(
+                kpts[sel_v[found]] - pts_kf[found], axis=1).tolist()
+        prev_ids = np.zeros(0, np.int64)
+        prev_pts = np.zeros((0, 2))
+        if prev:
+            pkeep = prev["ids"] >= 0
+            prev_ids = prev["ids"][pkeep]
+            prev_pts = prev["pts"][pkeep]
+        return dict(kpts=kpts, desc=desc, valid=valid, ids=ids, img=img_now,
+                    tracked=tracked, moves=moves, prev_ids=prev_ids, prev_pts=prev_pts)
+
+    def _predict_cross_view(self, a: int, b: int, kpts_a: np.ndarray) -> np.ndarray:
+        """Predict view-a features' pixel positions in view b through
+        the relative camera rotation (far-field approximation, the
+        reference's prediction_using_extrinsic). Returns [N, 3]:
+        (u, v, z_in_b); z <= 0 means behind camera b."""
+        if self.ext is None:
+            raise ValueError("multi-view tracking needs extrinsics")
+        rays_a = np.asarray(self._lift(a, kpts_a), np.float64)
+        R_a = np_lie.quat_to_rotmat(self.ext[a, 3:])
+        R_b = np_lie.quat_to_rotmat(self.ext[b, 3:])
+        rays_b = rays_a @ (R_b.T @ R_a).T
+        uv = np.asarray(self._project(b, rays_b))
+        return np.concatenate([uv, rays_b[:, 2:3]], axis=1)

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from d2slam_tpu_torch.utils.device import cudnn_fp32
-from d2slam_tpu_torch.utils.native import PKG_DIR, build_shared_lib
+from d2slam_tpu_torch.utils.native import PKG_DIR, build_shared_lib, nvcc
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "superpoint_stem.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -95,9 +95,7 @@ def stem_plain(img, w1, b1, w2, b2):
 def _lib():
     global _LIB
     if _LIB is None:
-        nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-        lib = build_shared_lib("superpoint_stem", SOURCE,
-                               [nvcc if os.path.exists(nvcc) else "nvcc"], NVCC_FLAGS)
+        lib = build_shared_lib("superpoint_stem", SOURCE, [nvcc()], NVCC_FLAGS)
         lib.superpoint_stem_launch.restype = ctypes.c_int
         lib.superpoint_stem_launch.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])

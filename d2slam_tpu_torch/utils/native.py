@@ -17,6 +17,13 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 
+def nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc`` (default
+    ``/usr/local/cuda``) when it exists, else ``nvcc`` from the PATH."""
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    return path if os.path.exists(path) else "nvcc"
+
+
 def build_shared_lib(name: str, src: str, compiler: list, flags: list,
                      libs: list = ()) -> ctypes.CDLL:
     """Compile ``src`` (a path inside the package) with

@@ -39,6 +39,39 @@ def circle_gt_ramp(t, radius=5.0, omega=0.5, height=2.0, tau=1.0):
     return p, v, a, q, dth
 
 
+def quadcam_extrinsics(n_views: int = 4, radius: float = 0.05) -> np.ndarray:
+    """Ring of outward-facing cameras at equal yaw steps: the virtual
+    pinhole views of a FOURCORNER_FISHEYE rig (reference quadcam:
+    4 fisheyes at 90 deg, undistorted to pinholes by FisheyeUndist)."""
+    R_bc = np.array([[0.0, 0, 1], [-1, 0, 0], [0, -1, 0]])  # fwd-facing
+    out = []
+    for v in range(n_views):
+        yaw = 2 * np.pi * v / n_views
+        c, s = np.cos(yaw), np.sin(yaw)
+        Rz = np.array([[c, -s, 0.0], [s, c, 0.0], [0, 0, 1.0]])
+        q = np_lie.rotmat_to_quat(Rz @ R_bc)
+        p = Rz @ np.array([radius, 0.0, 0.0])
+        out.append(np.concatenate([p, q]))
+    return np.stack(out)
+
+
+def fisheye_ring_extrinsics(baseline: float = 0.3) -> np.ndarray:
+    """[4, 7] body_T_cam of 4 outward fisheyes at 90 deg yaw steps about
+    the camera-frame y axis, each displaced ALONG its optical axis (the
+    quadrotor-arm geometry): adjacent centers then sit ``baseline``
+    apart, perpendicular to the pair's virtual view direction, which is
+    the rectified-pair condition the disparity model (disp = f*B/z)
+    assumes."""
+    radius = baseline / np.sqrt(2.0)
+    ext = np.zeros((4, 7))
+    for i in range(4):
+        yaw = np.deg2rad(90.0 * i)
+        q = np.array([0.0, np.sin(yaw / 2), 0.0, np.cos(yaw / 2)])
+        R = np_lie.quat_to_rotmat(q)
+        ext[i] = np.concatenate([R @ [0.0, 0.0, radius], np_lie.rotmat_to_quat(R)])
+    return ext
+
+
 def default_extrinsics(baseline=0.1) -> np.ndarray:
     R_bc = np.array([[0.0, 0, 1], [-1, 0, 0], [0, -1, 0]])
     q_bc = np_lie.rotmat_to_quat(R_bc)

@@ -7,10 +7,13 @@ the hand-written stem kernel is on the path:
 
   (a) builds every kernel from ``d2slam_tpu_torch/csrc`` (one compiler
       per source, all started together) and holds each against its plain
-      PyTorch version on the card, at the shapes the main paths give it;
-      times kernel, plain version and, where one PyTorch call computes
-      the same function, that call, and computes the bound from the
-      shapes;
+      PyTorch version on the card, at the shapes the main paths give it
+      and at ragged ones (sides that are no multiple of a kernel's tile,
+      narrower than a tile, a single image; the stem twice back to back
+      on different data); times kernel, plain version and, where one
+      PyTorch call computes the same function, that call, computes the
+      bound from the shapes, and reports each kernel's registers and
+      stack from cuobjdump;
   (b) the golden stereo VIO scenario (CircleSim seed 7, 240x320, the
       trained weights in weights/superpoint_synth.npz, 16 frames), with
       the bf16 backbone (stem kernel) and the f32 backbone: asserts the
@@ -79,6 +82,7 @@ from d2slam_tpu_torch.depth.stereo import (  # noqa: E402
 from d2slam_tpu_torch.ops import stereo_bm as bm  # noqa: E402
 from d2slam_tpu_torch.ops import superpoint_stem as stem  # noqa: E402
 from d2slam_tpu_torch.utils import np_lie  # noqa: E402
+from d2slam_tpu_torch.utils.native import nvcc  # noqa: E402
 from d2slam_tpu_torch.utils.render import (  # noqa: E402
     cylinder_wall_disparity,
     make_signatures,
@@ -123,12 +127,16 @@ def fail(msg):
 
 
 def time_ms(fn, iters=50, warmup=5):
-    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events)."""
+    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events).
+    The launches queue up behind a spin of ~10 ms on the card, so that a
+    kernel shorter than the host's time to launch it is still timed at the
+    card's pace, not the host's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)   # clock cycles
     start.record()
     for _ in range(iters):
         fn()
@@ -145,13 +153,31 @@ def stem_library(img, k1, b1, k2, b2):
     return torch.nn.functional.max_pool2d(x, 2)
 
 
+def kernel_resources(lib):
+    """Registers, stack (spills) and static shared memory of each kernel
+    in a built library, as ``cuobjdump --dump-resource-usage`` gives
+    them. A toolkit without cuobjdump, or output without a kernel's
+    line, fails the run: the no-spill claim must not vanish unseen."""
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        fail(f"no cuobjdump beside nvcc ({tool}): cannot read the kernels' registers and stack")
+    text = subprocess.run([tool, "--dump-resource-usage", lib._name],
+                          capture_output=True, text=True, check=True).stdout
+    lines = [" ".join(f for f in line.split() if f.split(":")[0] in
+                      ("REG", "STACK", "SHARED", "LOCAL"))
+             for line in text.splitlines() if line.lstrip().startswith("REG:")]
+    if not lines:
+        fail(f"cuobjdump gave no resource line for {lib._name}")
+    return lines
+
+
 def phase_kernels(params, dev):
     """(a) build both kernels, then check and time the stem kernel."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:   # one nvcc per source, together
-        for job in [pool.submit(stem.build), pool.submit(bm.build)]:
-            job.result()
+        libs = [job.result() for job in [pool.submit(stem.build), pool.submit(bm.build)]]
     build_s = time.perf_counter() - t0
+    resources = dict(zip(("superpoint_stem", "stereo_bm"), map(kernel_resources, libs)))
     wts = stem.pack_stem_weights(params["conv1a"]["w"], params["conv1a"]["b"],
                                  params["conv1b"]["w"], params["conv1b"]["b"], device=dev)
     k1 = torch.as_tensor(params["conv1a"]["w"]).permute(3, 2, 0, 1).to(dev, torch.bfloat16)
@@ -160,20 +186,29 @@ def phase_kernels(params, dev):
     b2 = wts.b2
     rng = np.random.default_rng(0)
     rows = {}
-    for (B, H, W) in [(2, 34, 50), (2, 240, 320), (4, 240, 320), (2, 480, 640)]:
-        img = torch.as_tensor(rng.uniform(0, 1, (B, H, W)).astype(np.float32), device=dev)
-        out = stem.superpoint_stem(img, wts)
-        ref = stem.stem_plain(img, *wts)
+    # ragged shapes: sides that are no multiple of the kernel's 16x16
+    # tile, one narrower than a tile, a single image, fewer tiles than SMs
+    for (B, H, W) in [(2, 34, 50), (1, 38, 10), (3, 50, 70), (1, 240, 320), (2, 240, 320),
+                      (4, 240, 320), (2, 480, 640)]:
+        # two launches back to back on different data: a persistent kernel
+        # must leave nothing behind
+        imgs = [torch.as_tensor(rng.uniform(0, 1, (B, H, W)).astype(np.float32), device=dev)
+                for _ in range(2)]
+        outs = [stem.superpoint_stem(im, wts) for im in imgs]
+        refs = [stem.stem_plain(im, *wts) for im in imgs]
         torch.cuda.synchronize()
-        o, r = out.float(), ref.float()
-        if not torch.isfinite(o).all():
-            fail(f"stem kernel output not finite at {B}x{H}x{W}")
-        err = (o - r).abs()
-        bad = int((err > STEM_ATOL + STEM_RTOL * r.abs()).sum())
-        max_err = float(err.max())
-        if bad:
-            fail(f"stem kernel disagrees with stem_plain at {B}x{H}x{W}: "
-                 f"{bad} elements out of tolerance, max |err| {max_err}")
+        max_err = 0.0
+        for call, (out, ref) in enumerate(zip(outs, refs)):
+            o, r = out.float(), ref.float()
+            if not torch.isfinite(o).all():
+                fail(f"stem kernel output not finite at {B}x{H}x{W}, call {call}")
+            err = (o - r).abs()
+            bad = int((err > STEM_ATOL + STEM_RTOL * r.abs()).sum())
+            max_err = max(max_err, float(err.max()))
+            if bad:
+                fail(f"stem kernel disagrees with stem_plain at {B}x{H}x{W}, call {call}: "
+                     f"{bad} elements out of tolerance, max |err| {max_err}")
+        img = imgs[0]
         row = dict(shape=[B, H, W], max_abs_err=max_err)
         if H >= 240:
             flops = stem.stem_flops(B, H, W)
@@ -189,7 +224,8 @@ def phase_kernels(params, dev):
             )
         rows[f"{B}x{H}x{W}"] = row
     print("phase a (kernel check): " + json.dumps(
-        {"build_s": build_s, "tolerance": f"|k-p| <= {STEM_ATOL} + {STEM_RTOL}*|p|",
+        {"build_s": build_s, "resources": resources,
+         "tolerance": f"|k-p| <= {STEM_ATOL} + {STEM_RTOL}*|p|",
          "stem": rows}), flush=True)
     return rows
 
@@ -213,7 +249,7 @@ def bm_compare(out, ref, region, what):
     fraction of equal winners and the largest error where they agree."""
     (kd, kb, kc, ks), (pd, pb, pc, ps) = ([x[region] for x in o] for o in (out, ref))
     same = kb == pb
-    agree = float(same.float().mean())
+    agree = int(same.sum()) / same.numel()   # exact: 1.0 only if all are equal
     errs = {n: float((a - b).abs()[same].max()) if bool(same.any()) else 0.0
             for n, a, b in (("cost", kc, pc), ("second", ks, ps), ("disp", kd, pd))}
     if not all(bool(torch.isfinite(x).all()) for x in (kd, kc, ks)):
@@ -230,7 +266,11 @@ def phase_bm_kernel(dev):
     listed shape, forward and reverse, the border columns on their own;
     time it at the frame's shapes."""
     rows = {}
-    cases = [(1, 37, 70, 24, 7, 5), (4, 240, 320, 64, 9, 10), (8, 240, 320, 64, 9, 10),
+    # 2x102x250: neither side a multiple of the kernel's tile (4 rows x 88
+    # columns there); the small ones run the other block sizes' halos
+    cases = [(1, 37, 70, 24, 7, 5), (2, 102, 250, 32, 9, 6), (1, 20, 64, 8, 1, 2),
+             (1, 26, 90, 16, 5, 3), (1, 30, 130, 17, 15, 4),
+             (4, 240, 320, 64, 9, 10), (8, 240, 320, 64, 9, 10),
              (1, 480, 640, 64, 9, 10), (1, 800, 1280, 64, 9, 10)]
     for seed, (N, H, W, D, block, shift) in enumerate(cases):
         left, right = textured_pairs(N, H, W, shift, dev, seed)

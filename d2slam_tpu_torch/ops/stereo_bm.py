@@ -15,12 +15,21 @@ neighbours, from which the sub-pixel parabola is evaluated after the
 loop. The cost volume is never stored.
 
 Bound on the card: 8 bytes in and 16 out per pixel (``bm_bytes``)
-against ``max_disp * (2*block + 17) + 15`` non-fused instructions per
-pixel (``bm_ops``), so the function is bound by operations: at
-[8, 240, 320], max_disp 64, block 9 it is 1.39 G operations against
-14.7 MB. The kernel's design (see the source) keeps the left column
-and all running values in registers and the right tile in shared
-memory, one thread block per (image, 8 rows, <= 128 columns).
+against ``max_disp * (2*block + 10) + 15`` non-fused instructions per
+pixel, and two more per disparity on the ``max_disp - 1`` columns that
+can lack a match (``bm_ops``), so the function is bound by operations:
+at [8, 240, 320], max_disp 64, block 9 it is 1.13 G operations against
+14.7 MB. What keeps a kernel from that bound is the SM's
+shared-memory pipe (one warp-wide instruction per clock against four
+arithmetic ones) and, at a frame's four pairs, too few warps on an SM,
+so the kernel's design (see the source) spends few shared-memory
+instructions and few registers: one thread block per (image, 4 rows,
+``bm_tile_cols`` <= 128 - (block - 1) columns plus a halo of block // 2
+on each side); a vertical stage with one thread per column (left
+column in registers, right tile in shared memory) stores the column
+sums, a horizontal stage with one thread per (row, 4 adjacent columns)
+reads them back 16 bytes at a time and keeps the 4 pixels' running
+values in registers; one barrier per disparity.
 
 ``bm_plain`` is the same function in plain PyTorch with the same order
 of summation. The wrapper runs it for CPU tensors only; on a CUDA
@@ -42,6 +51,8 @@ SOURCE = os.path.join(PKG_DIR, "csrc", "stereo_bm.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 BLOCKS = (1, 3, 5, 7, 9, 11, 13, 15)   # the kernel's instantiations
+COL_ROUND = 8       # tile widths are whole 16-byte load phases: 2 groups
+MAX_THREADS = 128   # columns of a tile, halo included
 
 # kernel launches since the counter was last reset (one per wrapper
 # call on a CUDA tensor; the plain version never counts)
@@ -53,15 +64,28 @@ _LIB = None
 def bm_ops(N: int, H: int, W: int, D: int, block: int) -> int:
     """Non-fused f32/integer operations the function needs. Per pixel
     and disparity: difference and abs (2), vertical and horizontal box
-    sums (2*(block-1)), scale (1), no-match mask (2), and the running
-    update (14: take 1, far 3, cm1 1, cp1 4, second 3, best 2). Per
-    pixel after the loop: 15 (neighbour test 3, parabola 9, output 3)."""
-    return N * H * W * (D * (2 * block + 17) + 15)
+    sums (2*(block-1)), scale (1) and the running update (9: take 1,
+    "the winner is the step before" 1, cp1 1, second 3, and cm1, best
+    cost, best disparity 1 each; the winner is never nearer than one
+    step, so no distance is computed). The no-match mask (compare and
+    select, 2) only on the min(D - 1, W) columns of a row that can lack
+    a match. Per pixel after the loop: 15 (neighbour test 3, parabola 9,
+    output 3)."""
+    return N * H * (W * (D * (2 * block + 10) + 15) + min(D - 1, W) * D * 2)
 
 
 def bm_bytes(N: int, H: int, W: int) -> int:
     """Two f32 inputs read once, four 4-byte outputs written once."""
     return N * H * W * (8 + 16)
+
+
+def bm_tile_cols(W: int, block: int) -> int:
+    """Columns of a thread block's tile: column tiles of equal width,
+    each a multiple of ``COL_ROUND`` and, with the halo of block // 2 on
+    each side, at most ``MAX_THREADS`` wide."""
+    max_tc = (MAX_THREADS - (block - 1)) // COL_ROUND * COL_ROUND
+    n_tiles = -(-W // max_tc)
+    return -(-(-(-W // n_tiles)) // COL_ROUND) * COL_ROUND
 
 
 def bm_plain(left, right, max_disp: int = 64, block: int = 9,
@@ -113,15 +137,15 @@ def _lib():
         lib = build_shared_lib("stereo_bm", SOURCE, [nvcc()], NVCC_FLAGS)
         lib.stereo_bm_launch.restype = ctypes.c_int
         lib.stereo_bm_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         _LIB = lib
     return _LIB
 
 
-def build() -> None:
+def build() -> ctypes.CDLL:
     """Compile and load the kernel now (it is otherwise built at its
-    first launch)."""
-    _lib()
+    first launch); returns the loaded library."""
+    return _lib()
 
 
 def stereo_bm(left: torch.Tensor, right: torch.Tensor, max_disp: int = 64,
@@ -161,7 +185,7 @@ def stereo_bm(left: torch.Tensor, right: torch.Tensor, max_disp: int = 64,
     err = lib.stereo_bm_launch(
         left.data_ptr(), right.data_ptr(), disp.data_ptr(), best.data_ptr(),
         cost.data_ptr(), second.data_ptr(), N, H, W, max_disp, block,
-        int(reverse), stream)
+        bm_tile_cols(W, block), int(reverse), stream)
     if err != 0:
         raise RuntimeError(f"stereo_bm launch failed: CUDA error {err}")
     launches += 1

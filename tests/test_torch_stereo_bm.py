@@ -181,4 +181,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         sbm.stereo_bm(x[:, :4], x[:, :4], 8, 5)  # H < block
     assert sbm.bm_bytes(8, 240, 320) == 8 * 240 * 320 * 24
-    assert sbm.bm_ops(1, 1, 1, 64, 9) == 64 * 35 + 15
+    # a lone column can lack a match: the mask's two operations count
+    assert sbm.bm_ops(1, 1, 1, 64, 9) == 64 * (28 + 2) + 15
+    assert sbm.bm_ops(1, 1, 320, 64, 9) == 320 * (64 * 28 + 15) + 63 * 64 * 2

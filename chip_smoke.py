@@ -28,10 +28,24 @@ the hand-written stem kernel is on the path:
       two kernel launches per frame; one frame through the HitNet option;
   (e) quadcam VIO: 4 outward 240x320 views per frame through the
       multi-view tracker (one stem launch for the 4 views) into the
-      estimator, 16 frames: asserts >= 10 keyframes and ATE < 0.25 m.
+      estimator, 16 frames: asserts >= 10 keyframes and ATE < 0.25 m;
+  (f) the single-robot ``D2SLAMSystem`` at full width: the scene of (c)
+      through ``input_stereo`` with NetVLAD (weights/netvlad_synth.npz)
+      fused into the extraction, loop detection with PnP verification,
+      PCM and the dense pose-graph solve every 5 keyframes, one lap of
+      the circle and 17 frames more (the places of the lap's start
+      again): asserts one stem launch and one NetVLAD pass per
+      frame, >= 2 PGO solves, >= 1 loop kept by PCM, and a PGO
+      trajectory no worse than the VIO one by more than 0.02 m;
+  (g) the pose-graph solvers alone: dense LM at the system's default
+      layout (256 poses, 1024 edges; 6-DoF and 4-DoF) and PCG on the
+      10,000-pose spiral of examples/bench_pgo_scale.py, each against
+      its own CPU result (relative final cost within 1e-3), with ms and
+      kernel launches per solve; and the batched PnP against the host
+      path on the correspondences of one of (f)'s loop queries.
 
-The launch counts of (c), (d) and (e) go into the ``kernels`` line: each
-count is set to 0 just before its path runs and read just after.
+The launch counts of (c), (d), (e) and (f) go into the ``kernels`` line:
+each count is set to 0 just before its path runs and read just after.
 
 Every phase prints one line; any failure exits non-zero. The last three
 lines are the ``kernels`` JSON, the card's name and power limit from
@@ -59,6 +73,9 @@ sys.path.insert(0, REPO)
 
 from d2slam_tpu_torch.config import D2Config  # noqa: E402
 from d2slam_tpu_torch.frontend import lk  # noqa: E402
+from d2slam_tpu_torch.frontend import loop_detector  # noqa: E402
+from d2slam_tpu_torch.frontend.loop_detector import LoopDetectorConfig  # noqa: E402
+from d2slam_tpu_torch.frontend.pnp import ransac_pnp_body  # noqa: E402
 from d2slam_tpu_torch.frontend.superpoint import (  # noqa: E402
     SuperPoint,
     SuperPointConfig,
@@ -80,6 +97,8 @@ from d2slam_tpu_torch.depth.stereo import (  # noqa: E402
     points_from_disparity,
 )
 from d2slam_tpu_torch.ops import stereo_bm as bm  # noqa: E402
+from d2slam_tpu_torch.pgo import PGOEdges, PGOLayout, PGOState, solve_pgo, solve_pgo_pcg  # noqa: E402
+from d2slam_tpu_torch.runtime.system import D2SLAMSystem, SystemConfig  # noqa: E402
 from d2slam_tpu_torch.ops import superpoint_stem as stem  # noqa: E402
 from d2slam_tpu_torch.utils import np_lie  # noqa: E402
 from d2slam_tpu_torch.utils.native import nvcc  # noqa: E402
@@ -94,9 +113,11 @@ from d2slam_tpu_torch.utils.sim import (  # noqa: E402
     fisheye_ring_extrinsics,
     quadcam_extrinsics,
 )
+from d2slam_tpu_torch.utils.synthetic import spiral_pose_graph  # noqa: E402
 from d2slam_tpu_torch.vins.estimator import D2Estimator  # noqa: E402
 
 WEIGHTS = os.path.join(REPO, "weights", "superpoint_synth.npz")
+NETVLAD_WEIGHTS = os.path.join(REPO, "weights", "netvlad_synth.npz")
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 FLOP/s (data sheet)
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 # non-fused f32 instructions/s: half the data sheet's 67 TFLOP/s, which
@@ -120,6 +141,21 @@ GOLDEN_ATE = 0.03
 GOLDEN_QUADCAM_IMAGE_ATE = 0.25
 GOLDEN_QUADCAM_DISP_RMS = 0.35
 WALL_RADIUS, WALL_DEPTH_RANGE = 5.0, (3.0, 7.5)
+# phase f: the PGO trajectory may be worse than the VIO one by this much
+# at most (m); phase g: card and CPU solves agree on the final cost
+PGO_ATE_SLACK = 0.02
+PGO_COST_RTOL = 1e-3
+# phase f: one lap of the circle and the first 17 places again. After
+# CircleSim's 1 s speed ramp a lap takes 108.6 frames (omega 0.5 rad/s at
+# 8 Hz); frames 109-125 revisit the places of frames 3-24 within
+# 0.06-1.4 degrees of heading
+SYSTEM_FRAMES = 126
+# phase f's loop gates, below the defaults' 15 matches and 25 inliers: a
+# view of this scene holds ~53 SuperPoint keypoints, and its blobs look
+# alike to the matcher, so the ratio test keeps ~12-23 matches between
+# two views of one place, about half of them right (a CPU count against
+# the rendered ground truth, at 0.1-1.2 degrees apart)
+LOOP_CFG = dict(min_match_per_dir=8, min_inliers=8)
 
 
 def fail(msg):
@@ -418,6 +454,174 @@ def profile_estimator(est, ff):
     )
 
 
+def count_launches(fn):
+    """Kernel launches of one ``fn()`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in p.key_averages()
+               if e.key.startswith(("cudaLaunch", "cuLaunch")))
+
+
+def trajectory_ate(stamps, poses, sim):
+    """ATE (RMSE, m) of keyframe positions against ground truth, aligned
+    on the first keyframe (the pose graph's gauge)."""
+    gts = [sim.gt_pose(t)[0] for t in stamps]
+    align = np_lie.pose_compose(np.asarray(poses[0], np.float64), np_lie.pose_inverse(gts[0]))
+    errs = [np.linalg.norm(p[:3] - np_lie.pose_compose(align, g)[:3])
+            for p, g in zip(poses, gts)]
+    return float(np.sqrt(np.mean(np.square(errs))))
+
+
+def run_system(params, dev, H, W, fx, n_frames, n_landmarks=300):
+    """(f) ``D2SLAMSystem.input_stereo`` over the CircleSim stereo scene
+    of (c); returns the metrics and the PnP correspondences of the last
+    loop query whose PnP found a pose."""
+    sim = CircleSim(seed=7, baseline=0.2, n_landmarks=n_landmarks)
+    inten = sim.rng.uniform(0.5, 1.0, len(sim.lms))
+    cfg = D2Config()
+    cfg.estimator.focal_length = fx
+    cams = [PinholeParams.make(fx, fx, W / 2, H / 2) for _ in range(2)]
+    system = D2SLAMSystem(cfg, SystemConfig(netvlad_weights=NETVLAD_WEIGHTS), sim.ext, cams,
+                          sp_params=params, sp_cfg=SuperPointConfig(compute_dtype="bfloat16"),
+                          loop_cfg=LoopDetectorConfig(**LOOP_CFG), frame_rate=sim.frame_hz,
+                          device=dev)
+    nv = system.netvlad
+    # warm the fused extraction once and build LK; not counted
+    system.tracker.extract(np.zeros((2, H, W), np.float32))
+    lk.build()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    pnp_args = {}
+
+    def recording_pnp(*a, **k):
+        T, inl = ransac_pnp_body(*a, **k)
+        if T is not None:
+            pnp_args["args"], pnp_args["kw"] = a, k
+        return T, inl
+
+    for (t, a, g) in sim.imu_samples(-0.3, 0.0):
+        system.input_imu(t, a, g)
+    loop_detector.ransac_pnp_body = recording_pnp
+    stem.launches = 0
+    nv.calls = 0
+    t_prev, n_kf, t_run = 0.0, 0, time.perf_counter()
+    try:
+        for k in range(n_frames):
+            t = k / sim.frame_hz
+            if k:
+                for (ts, a, g) in sim.imu_samples(t_prev + 1e-6, t + 1e-6):
+                    system.input_imu(ts, a, g)
+            t_prev = t
+            pose_gt, _ = sim.gt_pose(t)
+            imgs = [render_blobs(sim.lms, np_lie.pose_compose(pose_gt, sim.ext[c]),
+                                 fx, fx, W / 2, H / 2, H, W, intensities=inten)
+                    for c in range(2)]
+            n_kf += system.input_stereo(t, imgs[0], imgs[1]) is not None
+        system.solve_pgo()   # the last keyframes join the graph
+    finally:
+        loop_detector.ransac_pnp_body = ransac_pnp_body
+    wall = time.perf_counter() - t_run
+    launches, nv_calls = stem.launches, nv.calls
+    stamps, opt = system.trajectory()
+    _, ego = system.trajectory(optimized=False)
+    perf = system.perf.report()
+    u8 = torch.zeros((1, H, W), dtype=torch.uint8, device=dev)
+    res = dict(
+        frames=n_frames, keyframes=n_kf, stem_launches=launches, netvlad_runs=nv_calls,
+        gdesc_dim=system.sys.gdesc_dim,
+        retrieval_queries=perf.get("loop_detect", {}).get("count", 0),
+        loops_verified=len(system.loop_edges), loops_kept_by_pcm=system.loops_kept,
+        loop_pairs=[[e.frame_id_a, e.frame_id_b, e.inliers] for e in system.loop_edges],
+        pgo_solves=system.pgo_solve_count,
+        pgo_ms_per_solve=perf.get("pgo_solve", {}).get("mean_ms", float("nan")),
+        pgo_report=system.last_pgo_report._asdict() if system.last_pgo_report else None,
+        loop_verification_ms_per_query=perf.get("loop_detect", {}).get("mean_ms", float("nan")),
+        netvlad_ms_per_frame=(time_ms(lambda: nv(u8.float() / 255.0), iters=20)
+                              if dev.type == "cuda" else float("nan")),
+        ate_ego_m=trajectory_ate(stamps, ego, sim), ate_pgo_m=trajectory_ate(stamps, opt, sim),
+        finite=bool(np.isfinite(opt).all() and np.isfinite(ego).all()),
+        extract_ms_per_frame=system.tracker.perf.report()["extract"]["mean_ms"],
+        tracker_host_ms_per_frame=system.tracker.perf.report()["host"]["mean_ms"],
+        estimator_stages={k: v["mean_ms"] for k, v in system.estimator.perf.report().items()},
+        ms_per_frame=wall * 1e3 / n_frames, wall_s=wall,
+    )
+    return res, pnp_args
+
+
+def pgo_graph(n, E, dof, seed):
+    """The spiral graph of ``spiral_pose_graph`` with 0.05 m of noise on
+    its relative translations (so the optimum keeps a cost) and initial
+    positions perturbed by 0.2 m (pose 0 exact and fixed), padded to
+    ``E`` edges."""
+    gt, edges = spiral_pose_graph(n, seed=seed, pos_noise=0.05)
+    m = len(edges.i)
+    E = E or m
+    pad = E - m
+    edges = PGOEdges(
+        i=np.concatenate([edges.i, np.zeros(pad, np.int32)]),
+        j=np.concatenate([edges.j, np.zeros(pad, np.int32)]),
+        rel=np.concatenate([edges.rel, np.tile(np.eye(1, 7, 6, dtype=np.float32), (pad, 1))]),
+        sqrt_info=np.concatenate([edges.sqrt_info, np.tile(np.eye(6, dtype=np.float32), (pad, 1, 1))]),
+        valid=np.concatenate([edges.valid, np.zeros(pad, bool)]))
+    init = gt.copy()
+    init[1:, :3] += np.random.default_rng(seed).normal(0, 0.2, (n - 1, 3))
+    fixed = np.zeros(n, bool)
+    fixed[0] = True
+    return (PGOLayout(n, E, dof), PGOState(poses=init.astype(np.float32), valid=np.ones(n, bool)),
+            edges, fixed)
+
+
+def phase_pgo(dev, pnp_args):
+    """(g) the pose-graph solvers on the card against their CPU result,
+    and the batched PnP against the host path."""
+    rows = {}
+    for name, n, E, dof, solver, kw in (
+            ("dense_6dof_N256_E1024", 256, 1024, 6, solve_pgo, dict(max_iters=10)),
+            ("dense_4dof_N256_E1024", 256, 1024, 4, solve_pgo, dict(max_iters=10)),
+            ("pcg_6dof_N10000", 10000, None, 6, solve_pgo_pcg, dict(max_iters=8, cg_iters=100))):
+        layout, state, edges, fixed = pgo_graph(n, E, dof, seed=1)
+
+        def run(d):
+            return solver(layout, state, edges, fixed, device=d, **kw)
+
+        out, rep = run(dev)
+        t0 = time.perf_counter()
+        cpu_out, cpu_rep = run("cpu")
+        cpu_s = time.perf_counter() - t0
+        card, ref = out.poses.cpu().double().numpy(), cpu_out.poses.double().numpy()
+        cost, cpu_cost = float(rep.final_cost), float(cpu_rep.final_cost)
+        row = dict(poses=n, edges=layout.E, valid_edges=int(edges.valid.sum()),
+                   initial_cost=float(rep.initial_cost), final_cost=cost, cpu_final_cost=cpu_cost,
+                   cost_rel_diff=abs(cost - cpu_cost) / max(abs(cpu_cost), 1e-30),
+                   accepted=int(rep.accepted), cpu_accepted=int(cpu_rep.accepted),
+                   max_pos_diff_m=float(np.abs(card[:, :3] - ref[:, :3]).max()),
+                   ms=time_ms(lambda: run(dev), iters=3, warmup=1),
+                   launches=count_launches(lambda: run(dev)), cpu_s=cpu_s, **kw)
+        rows[name] = row
+        if not (np.isfinite(card).all() and row["cost_rel_diff"] <= PGO_COST_RTOL
+                and cost < float(rep.initial_cost)):
+            fail(f"PGO {name} on the card disagrees with its CPU result: {row}")
+    pnp = None
+    if "args" in pnp_args:
+        a, k = pnp_args["args"], dict(pnp_args["kw"])
+        k.pop("device", None)
+        ransac_pnp_body(*a, device=dev, **k)   # warm: solver handles, first launches
+        times = {}
+        for path, dk in (("host", False), ("device", dev), ("device_2", dev), ("host_2", False)):
+            t0 = time.perf_counter()
+            T, inl = ransac_pnp_body(*a, device=dk, **k)
+            times[path + "_ms"] = (time.perf_counter() - t0) * 1e3
+            times[path + "_inliers"] = int(inl.sum())
+        pnp = dict(correspondences=len(a[0]), iters=k.get("iters"), **times)
+    res = dict(solvers=rows, pnp=pnp)
+    print("phase g (PGO solvers and batched PnP): " + json.dumps(res), flush=True)
+    return res
+
+
 def golden_config(num_cams=2, lm_slots=128, measurements=512):
     """Estimator config of the JAX package's golden image tests
     (tests/test_golden_image_vio.py; with 4 cameras, 160 slots and 640
@@ -607,6 +811,17 @@ def main():
     if quad["stem_launches"] != quad["frames"]:
         fail(f"stem launches {quad['stem_launches']} != frames {quad['frames']}")
 
+    sysres, pnp_args = run_system(params, dev, 480, 640, 440.0, SYSTEM_FRAMES)
+    print("phase f (D2SLAMSystem 480x640, NetVLAD fused, loops, PCM, PGO): "
+          + json.dumps(sysres), flush=True)
+    if (not sysres["finite"] or sysres["pgo_solves"] < 2 or sysres["loops_kept_by_pcm"] < 1
+            or not sysres["ate_pgo_m"] <= sysres["ate_ego_m"] + PGO_ATE_SLACK):
+        fail(f"single-robot system out of its pins: {sysres}")
+    if sysres["stem_launches"] != sysres["frames"] or sysres["netvlad_runs"] != sysres["frames"]:
+        fail(f"stem launches {sysres['stem_launches']} / NetVLAD runs {sysres['netvlad_runs']} "
+             f"!= frames {sysres['frames']}")
+    phase_pgo(dev, pnp_args)
+
     big = kernel_rows["2x480x640"]
     frame = bm_rows["4x240x320"]   # the four pairs of a quadcam frame
     kernels = [{
@@ -614,7 +829,7 @@ def main():
         "route": "cuda",
         "source": "d2slam_tpu_torch/csrc/superpoint_stem.cu",
         "replaces": "d2slam_tpu/ops/superpoint_stem_pallas.py:51",
-        "launches": res["stem_launches"] + quad["stem_launches"],
+        "launches": res["stem_launches"] + quad["stem_launches"] + sysres["stem_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],

@@ -39,10 +39,12 @@ from d2slam_tpu_torch.frontend.matching import (
 from d2slam_tpu_torch.frontend.superpoint import (
     SuperPoint,
     SuperPointConfig,
+    SuperPointOutput,
     superpoint_extract,
 )
 from d2slam_tpu_torch.geometry.cameras import PinholeParams
 from d2slam_tpu_torch.utils import np_lie
+from d2slam_tpu_torch.utils.device import resolve_device
 from d2slam_tpu_torch.utils.perf import PerfTracker
 from d2slam_tpu_torch.vins.types import CameraObservations, FrontendFrame
 
@@ -141,10 +143,21 @@ class FeatureTracker:
         frame_rate: float = 8.0,
         device=None,
         extrinsics=None,
+        extract_fn=None,
+        aux_fn=None,
     ):
         """sp_params: the SuperPoint parameter pytree (numpy, JAX
         layout) or a ready ``SuperPoint``. ``device`` defaults to
         ``cuda`` and raises without a card unless ``device="cpu"``.
+
+        extract_fn: optional ``f(img, cam_id) -> SuperPointOutput`` of one
+        view, replacing SuperPoint (tests inject oracle extractors);
+        ``sp_params`` may then be None.
+
+        aux_fn: optional ``f(imgs_u8 [V, H, W] on the device) -> tensor``
+        run inside the extraction of a frame's views, on the images
+        already uploaded for SuperPoint (the system fuses NetVLAD here);
+        its result is ``self.last_aux`` until the next extraction.
 
         cam_params: per camera a ``PinholeParams`` or any object with
         ``lift`` / ``project`` methods (``geometry.kalibr.KalibrCamera``).
@@ -153,9 +166,16 @@ class FeatureTracker:
         cross-view association, which predicts feature positions through
         the relative camera rotations (reference matchLocalFeatures
         prediction_using_extrinsic)."""
-        self.model = (sp_params if isinstance(sp_params, SuperPoint)
-                      else SuperPoint(sp_params, sp_cfg, device=device))
-        self.device = self.model.device
+        self._extract_fn = extract_fn
+        self._aux_fn = aux_fn
+        self.last_aux = None
+        if extract_fn is not None:
+            self.model = None
+            self.device = resolve_device(device)
+        else:
+            self.model = (sp_params if isinstance(sp_params, SuperPoint)
+                          else SuperPoint(sp_params, sp_cfg, device=device))
+            self.device = self.model.device
         self.cams = cam_params
         self.cfg = cfg
         self.dt = 1.0 / frame_rate
@@ -169,12 +189,24 @@ class FeatureTracker:
         self.frame_count = 0
         self.landmark_count = 0
 
-    def extract(self, imgs: np.ndarray):
+    def extract(self, imgs: np.ndarray, aux: bool = True):
         """Batched extraction of [B, H, W] images (float [0, 1] or u8):
         u8 upload, normalization on the device. Returns the device
-        ``SuperPointOutput`` and host copies of (kpts, valid)."""
+        ``SuperPointOutput`` and host copies of (kpts, valid). With
+        ``aux`` the auxiliary function runs on the same upload; otherwise
+        ``last_aux`` is cleared, so a frame never carries a stale one."""
+        self.last_aux = None
+        if self._extract_fn is not None:
+            per_view = [self._extract_fn(im, v) for v, im in enumerate(imgs)]
+            out = SuperPointOutput(*(
+                torch.stack([torch.as_tensor(np.asarray(getattr(o, f)), device=self.device)
+                             for o in per_view])
+                for f in SuperPointOutput._fields))
+            return out, out.kpts.cpu().numpy(), out.valid.cpu().numpy()
         u8 = torch.from_numpy(_img_u8(imgs)).to(self.device)
         out = superpoint_extract(self.model, u8.float() / 255.0)
+        if aux and self._aux_fn is not None:
+            self.last_aux = self._aux_fn(u8)
         return out, out.kpts.cpu().numpy(), out.valid.cpu().numpy()
 
     def _lift(self, cam_idx: int, uv):
@@ -371,7 +403,7 @@ class FeatureTracker:
             else:
                 per_view = []
                 for im in imgs:
-                    outs, kpts, valid = self.extract(im[None])
+                    outs, kpts, valid = self.extract(im[None], aux=False)
                     per_view.append((kpts[0], outs.desc[0], valid[0]))
         with self.perf.stage("host"):
             return self._associate_multiview(stamp, frame_id, imgs, per_view, adjacency)

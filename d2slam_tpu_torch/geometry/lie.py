@@ -254,15 +254,17 @@ def pose_from_matrix(T):
 
 
 def yaw_from_quat(q):
-    """ZYX yaw angle of quaternion (xyzw)."""
-    x, y, z, w = q.unbind(-1)
-    return torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+    """ZYX yaw angle of quaternion (xyzw). The components are sliced with
+    their last axis kept: under ``jacfwd`` a 0-d tensor times a Python
+    float gets a float64 tangent whatever the tensor's dtype."""
+    x, y, z, w = (q[..., k:k + 1] for k in range(4))
+    return torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))[..., 0]
 
 
 def quat_from_yaw(yaw):
-    half = 0.5 * yaw
+    half = 0.5 * yaw[..., None]   # kept axis: see yaw_from_quat
     zero = torch.zeros_like(half)
-    return torch.stack([zero, zero, torch.sin(half), torch.cos(half)], dim=-1)
+    return torch.cat([zero, zero, torch.sin(half), torch.cos(half)], dim=-1)
 
 
 def pose4d_boxplus(pose, delta):

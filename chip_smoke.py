@@ -42,10 +42,26 @@ the hand-written stem kernel is on the path:
       10,000-pose spiral of examples/bench_pgo_scale.py, each against
       its own CPU result (relative final cost within 1e-3), with ms and
       kernel launches per solve; and the batched PnP against the host
-      path on the correspondences of one of (f)'s loop queries.
+      path on the correspondences of one of (f)'s loop queries;
+  (h) dataset replay at EuRoC's format: the scene of (c) at 480x752
+      (camera 20 Hz, IMU 200 Hz, 40 frames from rest) written once as an
+      EuRoC-ASL directory and once as a ROS1 bag; (A) its uint8 frames
+      fed serially to ``D2SLAMSystem.input_stereo``, (B)
+      ``run_dataset_vio`` on the directory (native PNG prefetch, the
+      two-thread ``PipelinedSystem`` with the extraction lookahead on a
+      CUDA stream), (C) the bag's event stream against the directory's;
+      asserts (B)'s keyframes, positions and loop-database descriptors
+      against (A)'s, (B)'s ATE against the dataset's ground truth, one
+      stem launch per frame in (A) and in (B), and (C) bit for bit;
+  (i) the dynamic start: tests/test_estimator.py::
+      test_dynamic_start_sfm_init's scenario on the card (mono, moving at
+      the start, SFM initialization), with that test's pins; and the
+      essential-matrix RANSAC on the card against the host path.
 
-The launch counts of (c), (d), (e) and (f) go into the ``kernels`` line:
-each count is set to 0 just before its path runs and read just after.
+The native pipeline library and LK are built with the kernels in (a).
+The launch counts of (c), (d), (e), (f) and (h) go into the ``kernels``
+line: each count is set to 0 just before its path runs and read just
+after.
 
 Every phase prints one line; any failure exits non-zero. The last three
 lines are the ``kernels`` JSON, the card's name and power limit from
@@ -57,6 +73,8 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -72,6 +90,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from d2slam_tpu_torch.config import D2Config  # noqa: E402
+from d2slam_tpu_torch.datasets import EuRoCDataset, RosbagReader, RosbagWriter  # noqa: E402
 from d2slam_tpu_torch.frontend import lk  # noqa: E402
 from d2slam_tpu_torch.frontend import loop_detector  # noqa: E402
 from d2slam_tpu_torch.frontend.loop_detector import LoopDetectorConfig  # noqa: E402
@@ -98,6 +117,8 @@ from d2slam_tpu_torch.depth.stereo import (  # noqa: E402
 )
 from d2slam_tpu_torch.ops import stereo_bm as bm  # noqa: E402
 from d2slam_tpu_torch.pgo import PGOEdges, PGOLayout, PGOState, solve_pgo, solve_pgo_pcg  # noqa: E402
+from d2slam_tpu_torch.runtime import pipeline  # noqa: E402
+from d2slam_tpu_torch.runtime.dataset_vio import run_dataset_vio  # noqa: E402
 from d2slam_tpu_torch.runtime.system import D2SLAMSystem, SystemConfig  # noqa: E402
 from d2slam_tpu_torch.ops import superpoint_stem as stem  # noqa: E402
 from d2slam_tpu_torch.utils import np_lie  # noqa: E402
@@ -113,8 +134,15 @@ from d2slam_tpu_torch.utils.sim import (  # noqa: E402
     fisheye_ring_extrinsics,
     quadcam_extrinsics,
 )
-from d2slam_tpu_torch.utils.synthetic import spiral_pose_graph  # noqa: E402
+from d2slam_tpu_torch.utils.euroc_writer import write_euroc_dataset  # noqa: E402
+from d2slam_tpu_torch.utils.evaluation import ate_rmse  # noqa: E402
+from d2slam_tpu_torch.utils.synthetic import (  # noqa: E402
+    replay_events,
+    spiral_pose_graph,
+    stereo_replay_sequence,
+)
 from d2slam_tpu_torch.vins.estimator import D2Estimator  # noqa: E402
+from d2slam_tpu_torch.vins.initialization import solve_relative_pose  # noqa: E402
 
 WEIGHTS = os.path.join(REPO, "weights", "superpoint_synth.npz")
 NETVLAD_WEIGHTS = os.path.join(REPO, "weights", "netvlad_synth.npz")
@@ -156,6 +184,16 @@ SYSTEM_FRAMES = 126
 # two views of one place, about half of them right (a CPU count against
 # the rendered ground truth, at 0.1-1.2 degrees apart)
 LOOP_CFG = dict(min_match_per_dir=8, min_inliers=8)
+# phase h: EuRoC's image size, camera and IMU rates; 40 frames from rest.
+# Gates fixed before the first run: (B) against (A) on the keyframes'
+# positions (m) and their loop-database descriptors, (B)'s ATE (m)
+EUROC_H, EUROC_W, EUROC_FX = 480, 752, 440.0
+DATASET_FRAMES, DATASET_CAM_HZ, DATASET_IMU_HZ = 40, 20.0, 200
+DATASET_POS_ATOL, DATASET_GDESC_ATOL, DATASET_ATE = 1e-3, 1e-5, 0.05
+# phase i: tests/test_estimator.py::test_dynamic_start_sfm_init's pins
+DYN_FRAMES, DYN_MIN_OUT, DYN_SPEED, DYN_SPEED_TOL, DYN_ATE = 16, 8, 2.5, 0.3, 0.25
+# the essential-matrix RANSAC, card against host: rotation within (rad)
+REL_POSE_ROT_TOL = 1e-3
 
 
 def fail(msg):
@@ -210,8 +248,11 @@ def kernel_resources(lib):
 def phase_kernels(params, dev):
     """(a) build both kernels, then check and time the stem kernel."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:   # one nvcc per source, together
-        libs = [job.result() for job in [pool.submit(stem.build), pool.submit(bm.build)]]
+    # one compiler per source, all together: the two kernels (nvcc), the
+    # native frame pipeline and LK (g++)
+    with ThreadPoolExecutor(4) as pool:
+        jobs = [pool.submit(f) for f in (stem.build, bm.build, pipeline.build, lk.build)]
+        libs = [job.result() for job in jobs][:2]
     build_s = time.perf_counter() - t0
     resources = dict(zip(("superpoint_stem", "stereo_bm"), map(kernel_resources, libs)))
     wts = stem.pack_stem_weights(params["conv1a"]["w"], params["conv1a"]["b"],
@@ -225,7 +266,7 @@ def phase_kernels(params, dev):
     # ragged shapes: sides that are no multiple of the kernel's 16x16
     # tile, one narrower than a tile, a single image, fewer tiles than SMs
     for (B, H, W) in [(2, 34, 50), (1, 38, 10), (3, 50, 70), (1, 240, 320), (2, 240, 320),
-                      (4, 240, 320), (2, 480, 640)]:
+                      (4, 240, 320), (2, 480, 640), (2, EUROC_H, EUROC_W)]:
         # two launches back to back on different data: a persistent kernel
         # must leave nothing behind
         imgs = [torch.as_tensor(rng.uniform(0, 1, (B, H, W)).astype(np.float32), device=dev)
@@ -622,6 +663,251 @@ def phase_pgo(dev, pnp_args):
     return res
 
 
+def dataset_config(fx):
+    """Phase h's settings: ``D2Config()`` at focal ``fx``, the bf16
+    SuperPoint, NetVLAD fused, loops and PGO on with phase f's gates."""
+    cfg = D2Config()
+    cfg.estimator.focal_length = fx
+    return cfg, SystemConfig(netvlad_weights=NETVLAD_WEIGHTS), dict(
+        sp_cfg=SuperPointConfig(compute_dtype="bfloat16"), loop_cfg=LoopDetectorConfig(**LOOP_CFG))
+
+
+def write_bag(path, imu, frames):
+    """The sequence as a ROS1 bag, messages in the order of the EuRoC
+    stream (IMU up to a frame's stamp, then its two images)."""
+    with RosbagWriter(path) as w:
+        for ev in replay_events(imu, frames):
+            if ev[0] == "imu":
+                w.write_imu("/imu0", *ev[1:])
+            else:
+                for c, img in enumerate(ev[2]):
+                    w.write_image(f"/cam{c}/image_raw", ev[1], img)
+
+
+def compare_streams(euroc_events, bag_events):
+    """(C): the same kinds of events in the same order, IMU values equal,
+    stamps within 1 ns (the bag keeps seconds and nanoseconds apart),
+    images equal bit for bit. Returns counts."""
+    n_imu = n_frames = 0
+    for a, b in zip(euroc_events, bag_events, strict=True):
+        if a[0] != b[0] or abs(a[1] - b[1]) > 1e-9:
+            fail(f"bag event {b[:2]} != EuRoC event {a[:2]}")
+        if a[0] == "imu":
+            n_imu += 1
+            if not (np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3])):
+                fail(f"IMU sample at {a[1]} differs between the bag and the EuRoC files")
+        else:
+            n_frames += 1
+            if not all(x.dtype == y.dtype == np.uint8 and np.array_equal(x, y)
+                       for x, y in zip(a[2], b[2], strict=True)):
+                fail(f"frame at {a[1]} differs between the bag and the EuRoC files")
+    return dict(imu=n_imu, frames=n_frames)
+
+
+def keyframe_table(system):
+    """Keyframe ids, VIO poses [N, 7] and stamps, and the loop database's
+    global descriptor of each keyframe id."""
+    stamps, poses = system.trajectory(optimized=False)
+    det = system.detector
+    n = len(det.entries)
+    gdesc = {int(f): det.gdesc[i] for i, f in enumerate(det._db_frame[:n])}
+    return [m[1] for m in system._pgo_meta], poses, stamps, gdesc
+
+
+def frame_times(system, wall, n_frames):
+    """Host-clock times of one run: per frame, and the stages apart."""
+    tr = system.tracker.perf.report()
+    est = system.estimator.perf.report()
+    sp = system.perf.report()
+    return dict(
+        ms_per_frame=wall * 1e3 / n_frames,
+        submit_ms_per_frame=tr.get("submit", {}).get("mean_ms"),
+        extract_ms_per_frame=tr["extract"]["mean_ms"],
+        tracker_host_ms_per_frame=tr["host"]["mean_ms"],
+        estimator_ms_per_keyframe=sum(v["mean_ms"] for v in est.values()),
+        estimator_stages={k: v["mean_ms"] for k, v in est.items()},
+        loop_detect_ms_per_query=sp.get("loop_detect", {}).get("mean_ms"),
+        pgo_ms_per_solve=sp.get("pgo_solve", {}).get("mean_ms"),
+        pgo_solves=system.pgo_solve_count)
+
+
+def stem_beside_pgo(dev, system, wts):
+    """The stem kernel's time at 2x480x752 on a stream of its own while
+    another thread runs the system's pose-graph solve again and again
+    (CUDA events, as ``time_ms``)."""
+    img = torch.rand((2, EUROC_H, EUROC_W), generator=torch.Generator(device=dev).manual_seed(3),
+                     device=dev)
+    stop = threading.Event()
+
+    def load():
+        while not stop.is_set():
+            system.solve_pgo()
+
+    th = threading.Thread(target=load)
+    th.start()
+    try:
+        time.sleep(0.5)   # the solve is issuing kernels
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            ms = time_ms(lambda: stem.superpoint_stem(img, wts))
+    finally:
+        stop.set()
+        th.join()
+    return ms
+
+
+def phase_dataset(params, dev):
+    """(h) the dataset replay at EuRoC's format, serial against pipelined,
+    and the bag's stream against the directory's."""
+    H, W, fx = EUROC_H, EUROC_W, EUROC_FX
+    sim = CircleSim(seed=7, baseline=0.2, n_landmarks=300, frame_hz=DATASET_CAM_HZ,
+                    imu_hz=DATASET_IMU_HZ)
+    imu, frames, gt = stereo_replay_sequence(sim, DATASET_FRAMES, H, W, fx)
+    cams = [PinholeParams.make(fx, fx, W / 2, H / 2) for _ in range(2)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        euroc, bag = os.path.join(tmp, "euroc"), os.path.join(tmp, "seq.bag")
+        write_euroc_dataset(euroc, imu, frames, gt)
+        write_bag(bag, imu, frames)
+        streams = compare_streams(
+            EuRoCDataset(euroc).play(as_uint8=True),
+            RosbagReader(bag).play_vio("/imu0", ["/cam0/image_raw", "/cam1/image_raw"]))
+
+        # (A) the uint8 frames straight into the system, serially
+        cfg, sys_cfg, setup = dataset_config(fx)
+        system = D2SLAMSystem(cfg, sys_cfg, sim.ext, cams, sp_params=params,
+                              frame_rate=sim.frame_hz, device=dev, **setup)
+        system.tracker.extract(np.zeros((2, H, W), np.float32))   # warm; not counted
+        torch.cuda.synchronize()
+        stem.launches = 0
+        t0 = time.perf_counter()
+        for ev in replay_events(imu, frames):
+            if ev[0] == "imu":
+                system.input_imu(*ev[1:])
+            else:
+                system.input_stereo(ev[1], *ev[2])
+        system.solve_pgo()   # the last keyframes join the graph, as in (B)
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        launches_a = stem.launches
+
+        # (B) the directory through run_dataset_vio, pipelined
+        cfg, sys_cfg, setup = dataset_config(fx)
+        stem.launches = 0
+        res = run_dataset_vio(euroc, fx=fx, baseline=0.2, sp_weights=WEIGHTS, cfg=cfg,
+                              sys_cfg=sys_cfg, device=dev, pipelined=True, **setup)
+        torch.cuda.synchronize()
+        launches_b = stem.launches
+
+    ids_a, poses_a, stamps_a, gd_a = keyframe_table(system)
+    ids_b, poses_b, _, gd_b = keyframe_table(res["system"])
+    gt_t = np.array([t for t, _ in gt])
+    gt_p = np.stack([p for _, p in gt])
+    ate_a, _ = ate_rmse(stamps_a, poses_a, gt_t, gt_p)
+    same_ids = ids_a == ids_b
+    pos_diff = float(np.abs(poses_a[:, :3] - poses_b[:, :3]).max()) if same_ids else float("inf")
+    gdesc_diff = (max(float(np.abs(gd_a[f] - gd_b[f]).max()) for f in ids_a)
+                  if same_ids and set(gd_a) == set(gd_b) == set(ids_a) else float("inf"))
+    out = dict(
+        frames=DATASET_FRAMES, shape=[2, H, W], streams=streams, keyframes=len(ids_a),
+        same_keyframe_ids=same_ids, max_pos_diff_m=pos_diff, max_gdesc_diff=gdesc_diff,
+        ate_serial_m=float(ate_a), ate_pipelined_m=res["ate_m"],
+        loops=[len(system.loop_edges), len(res["system"].loop_edges)],
+        stem_launches=[launches_a, launches_b],
+        serial=frame_times(system, wall_a, DATASET_FRAMES),
+        pipelined=frame_times(res["system"], res["wall_s"], DATASET_FRAMES),
+        stem_ms_beside_pgo=stem_beside_pgo(dev, system, system.tracker.model.stem),
+    )
+    print("phase h (dataset replay 2x480x752, EuRoC dir and bag, serial vs pipelined): "
+          + json.dumps(out), flush=True)
+    if not same_ids or pos_diff > DATASET_POS_ATOL or gdesc_diff > DATASET_GDESC_ATOL:
+        fail(f"pipelined replay differs from the serial run: ids {ids_a} / {ids_b}, "
+             f"positions {pos_diff} m, descriptors {gdesc_diff}")
+    if not (res["ate_m"] is not None and res["ate_m"] < DATASET_ATE):
+        fail(f"pipelined replay ATE {res['ate_m']} m (pin {DATASET_ATE} m)")
+    if launches_a != DATASET_FRAMES or launches_b != DATASET_FRAMES:
+        fail(f"stem launches {launches_a} (serial) / {launches_b} (pipelined) "
+             f"!= {DATASET_FRAMES} frames")
+    if streams["frames"] != DATASET_FRAMES:
+        fail(f"bag replay gave {streams['frames']} frames")
+    return out
+
+
+def essential_data():
+    """tests/test_init_eval.py::test_essential_relative_pose's data: 60
+    correspondences of a known relative pose, 6 of them outliers."""
+    rng = np.random.default_rng(0)
+    w = np.array([0.05, -0.1, 0.2])
+    th = np.linalg.norm(w)
+    R12 = np_lie.quat_to_rotmat(np.concatenate([np.sin(th / 2) * w / th, [np.cos(th / 2)]]))
+    t12 = np.array([0.4, 0.1, -0.2])
+    pts1 = np.concatenate([rng.uniform(-2, 2, (60, 2)), rng.uniform(4, 10, (60, 1))], axis=1)
+    r1 = pts1 / np.linalg.norm(pts1, axis=1, keepdims=True)
+    pts2 = (R12 @ pts1.T).T + t12
+    r2 = pts2 / np.linalg.norm(pts2, axis=1, keepdims=True)
+    r2[:6] = rng.normal(0, 1, (6, 3))
+    r2[:6] /= np.linalg.norm(r2[:6], axis=1, keepdims=True)
+    return r1, r2, R12
+
+
+def phase_dynamic_start(dev):
+    """(i) the SFM initialization of a drone moving at the start, and the
+    essential-matrix RANSAC on the card against the host."""
+    cfg = D2Config()   # the port's default dtype (float64)
+    cfg.num_cams = 1
+    e = cfg.estimator
+    e.max_sld_win_size, e.min_solve_frames, e.max_lm_slots = 8, 4, 128
+    e.max_solve_measurements, e.max_imu_samples, e.max_solver_iters = 512, 128, 5
+    sim = CircleSim(dynamic_start=True)
+    est = D2Estimator(cfg, sim.ext[:1], device=dev)
+    for (t, a, g) in sim.imu_samples(-0.3, 0.0):
+        est.input_imu(t, a, g)
+    outs, first, t_prev, ms = [], None, 0.0, []
+    for k in range(DYN_FRAMES):
+        t = k / sim.frame_hz
+        if k:
+            for (ts, a, g) in sim.imu_samples(t_prev + 1e-6, t + 1e-6):
+                est.input_imu(ts, a, g)
+        t_prev = t
+        ff = sim.frame(k)
+        ff.observations = ff.observations[:1]
+        t0 = time.perf_counter()
+        od = est.input_frame(ff)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if od is not None:
+            first = k if first is None else first
+            outs.append((np.asarray(od.pose, np.float64), sim.gt_pose(t)[0], od))
+    ate = float("nan")
+    if outs:
+        align = np_lie.pose_compose(outs[0][1], np_lie.pose_inverse(outs[0][0]))
+        ate = float(np.sqrt(np.mean([np.sum((np_lie.pose_compose(align, p)[:3] - g[:3]) ** 2)
+                                     for p, g, _ in outs])))
+    speed = float(np.linalg.norm(outs[-1][2].vel)) if outs else float("nan")
+
+    r1, r2, R12 = essential_data()
+    solve_relative_pose(r1, r2, thresh=1e-4, device=dev)   # warm: solver handles
+    rel = {}
+    for path, d in (("host", False), ("device", dev), ("device_2", dev), ("host_2", False)):
+        t0 = time.perf_counter()
+        R, _, inl = solve_relative_pose(r1, r2, thresh=1e-4, device=d)
+        rel[path + "_ms"] = (time.perf_counter() - t0) * 1e3
+        rel[path + "_inliers"] = int(inl.sum())
+        rel.setdefault("R_" + path.split("_")[0], R)
+    Rh, Rd = rel.pop("R_host"), rel.pop("R_device")
+    rot = (float(np.arccos(np.clip((np.trace(Rh.T @ Rd) - 1) / 2, -1, 1)))
+           if Rh is not None and Rd is not None else float("inf"))
+    res = dict(initialized=est.initialized, first_initialized_frame=first, outputs=len(outs),
+               speed_mps=speed, ate_m=ate, ms_per_frame=float(np.mean(ms)),
+               relative_pose=dict(rotation_diff_rad=rot, **rel))
+    print("phase i (dynamic start, SFM initialization, essential RANSAC): " + json.dumps(res),
+          flush=True)
+    if not (est.initialized and len(outs) >= DYN_MIN_OUT
+            and abs(speed - DYN_SPEED) < DYN_SPEED_TOL and ate < DYN_ATE):
+        fail(f"dynamic start out of its pins: {res}")
+    if rel["host_inliers"] != rel["device_inliers"] or not rot < REL_POSE_ROT_TOL:
+        fail(f"essential RANSAC on the card differs from the host: {res['relative_pose']}")
+    return res
+
+
 def golden_config(num_cams=2, lm_slots=128, measurements=512):
     """Estimator config of the JAX package's golden image tests
     (tests/test_golden_image_vio.py; with 4 cameras, 160 slots and 640
@@ -821,21 +1107,28 @@ def main():
         fail(f"stem launches {sysres['stem_launches']} / NetVLAD runs {sysres['netvlad_runs']} "
              f"!= frames {sysres['frames']}")
     phase_pgo(dev, pnp_args)
+    dataset = phase_dataset(params, dev)
+    phase_dynamic_start(dev)
 
     big = kernel_rows["2x480x640"]
+    euroc = kernel_rows[f"2x{EUROC_H}x{EUROC_W}"]
     frame = bm_rows["4x240x320"]   # the four pairs of a quadcam frame
     kernels = [{
         "name": "superpoint_stem",
         "route": "cuda",
         "source": "d2slam_tpu_torch/csrc/superpoint_stem.cu",
         "replaces": "d2slam_tpu/ops/superpoint_stem_pallas.py:51",
-        "launches": res["stem_launches"] + quad["stem_launches"] + sysres["stem_launches"],
+        "launches": (res["stem_launches"] + quad["stem_launches"] + sysres["stem_launches"]
+                     + sum(dataset["stem_launches"])),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"],
         "library_ms": big["library_ms"],
+        # the dataset replay's shape (phase h)
+        f"at_2x{EUROC_H}x{EUROC_W}": {k: euroc[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")},
     }, {
         "name": "stereo_bm",
         "route": "cuda",

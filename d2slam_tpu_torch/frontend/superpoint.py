@@ -73,6 +73,26 @@ def load_params(path: str) -> Dict:
     return params
 
 
+def random_params(seed: int = 0, cfg: SuperPointConfig = SuperPointConfig()) -> Dict:
+    """He-initialized parameters in the JAX layout (numpy), drawn from
+    ``numpy.random.default_rng(seed)``: repeatable keypoints that are not
+    3D-consistent, for smoke runs without trained weights (the JAX
+    package's ``superpoint_init`` draws from ``jax.random`` instead)."""
+    rng = np.random.default_rng(seed)
+    shapes = [(3, 1, 64), (3, 64, 64), (3, 64, 64), (3, 64, 64), (3, 64, 128),
+              (3, 128, 128), (3, 128, 128), (3, 128, 128),
+              (3, 128, 256), (1, 256, 65), (3, 128, 256), (1, 256, cfg.desc_dim)]
+    params: Dict = {}
+    for name, (k, cin, cout) in zip(_ENCODER + _HEADS, shapes):
+        w = rng.standard_normal((k, k, cin, cout)) * np.sqrt(2.0 / (k * k * cin))
+        params[name] = {"w": w.astype(np.float32), "b": np.zeros(cout, np.float32)}
+    if cfg.pca_dim:
+        proj = np.zeros((cfg.desc_dim, cfg.pca_dim), np.float32)
+        proj[: cfg.pca_dim] = np.eye(cfg.pca_dim, dtype=np.float32)
+        params["pca"] = {"proj": proj, "mean": np.zeros(cfg.desc_dim, np.float32)}
+    return params
+
+
 class SuperPoint(nn.Module):
     """SuperPoint weights on one device in the port's layouts.
 

@@ -20,13 +20,21 @@ temporal tracking as above, then descriptor matching between adjacent
 views gated by positions predicted through the camera extrinsics; the
 matched features of several views are unified into one landmark id.
 
+Extraction lookahead (``submit_stereo_extraction``): on a CUDA device a
+frame's upload and batched extraction (SuperPoint, the stem kernel, and
+the fused auxiliary network) are queued on a side stream of the
+tracker's own while the caller associates the previous frame; the
+resolver hands the outputs over to the caller's current stream.
+
+Images come in as float [0, 1] or ``uint8``; they upload as ``uint8``.
+
 The RGB-D path and the learned matcher are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, List, Optional, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -58,6 +66,15 @@ class TrackerConfig:
     stereo_ratio: float = 0.8
     use_lk: bool = True
     lk_levels: int = 3
+
+
+def _img_f32(img: np.ndarray) -> np.ndarray:
+    """A view as float32 in [0, 1] (``uint8`` divided by 255) for the
+    host work (LK runs on float images)."""
+    a = np.asarray(img)
+    if a.dtype == np.uint8:
+        return a.astype(np.float32) / 255.0
+    return np.asarray(a, np.float32)
 
 
 def _img_u8(img: np.ndarray) -> np.ndarray:
@@ -133,6 +150,17 @@ def _lookup_pts_vec(query_ids: np.ndarray, ref_ids: np.ndarray,
     return found, out
 
 
+class Extraction(NamedTuple):
+    """One frame's batched extraction: the device outputs, host copies
+    of keypoints and validity, and the auxiliary network's output for
+    this frame (None without ``aux_fn``)."""
+
+    out: SuperPointOutput
+    kpts: np.ndarray
+    valid: np.ndarray
+    aux: Optional[torch.Tensor]
+
+
 class FeatureTracker:
     def __init__(
         self,
@@ -188,6 +216,7 @@ class FeatureTracker:
         self.last_kf_mv: Dict[int, Dict] = {}  # per-view (multi-view rig)
         self.frame_count = 0
         self.landmark_count = 0
+        self._side_stream = None      # the lookahead's CUDA stream
 
     def extract(self, imgs: np.ndarray, aux: bool = True):
         """Batched extraction of [B, H, W] images (float [0, 1] or u8):
@@ -203,11 +232,9 @@ class FeatureTracker:
                              for o in per_view])
                 for f in SuperPointOutput._fields))
             return out, out.kpts.cpu().numpy(), out.valid.cpu().numpy()
-        u8 = torch.from_numpy(_img_u8(imgs)).to(self.device)
-        out = superpoint_extract(self.model, u8.float() / 255.0)
-        if aux and self._aux_fn is not None:
-            self.last_aux = self._aux_fn(u8)
-        return out, out.kpts.cpu().numpy(), out.valid.cpu().numpy()
+        res = self._extract_u8(torch.from_numpy(_img_u8(imgs)), aux)
+        self.last_aux = res.aux
+        return res.out, res.kpts, res.valid
 
     def _lift(self, cam_idx: int, uv):
         """Pixels -> unit rays for camera ``cam_idx`` (numpy). Dispatches
@@ -248,14 +275,87 @@ class FeatureTracker:
         )
         return idx.cpu().numpy(), ok.cpu().numpy()
 
+    def _extract_u8(self, u8: torch.Tensor, aux: bool = True) -> Extraction:
+        """Batched extraction of host ``uint8`` views [B, H, W]: upload,
+        SuperPoint, ``aux_fn`` on the same upload (with ``aux``),
+        keypoints and validity to the host."""
+        u8 = u8.to(self.device)
+        out = superpoint_extract(self.model, u8.float() / 255.0)
+        aux = self._aux_fn(u8) if aux and self._aux_fn is not None else None
+        return Extraction(out, out.kpts.cpu().numpy(), out.valid.cpu().numpy(), aux)
+
+    def submit_stereo_extraction(self, img_left, img_right
+                                 ) -> Optional[Callable[[], Extraction]]:
+        """Start the batched extraction of a stereo pair without waiting
+        for it. Returns a zero-argument resolver to pass as
+        ``process_stereo(..., extracted=...)`` with these images, or None
+        where the batched path does not apply (an ``extract_fn``, views
+        of different shapes).
+
+        On a CUDA device the pair is staged in pinned memory; on the
+        tracker's side stream it is uploaded (``non_blocking``),
+        extracted (SuperPoint with the stem kernel, then ``aux_fn``) and
+        its keypoints and validity copied back into pinned host memory,
+        and an event closes the work. The resolver makes the caller's
+        current stream wait on that event, records the outputs' use on
+        that stream, waits for the host copies and returns the
+        :class:`Extraction` with this frame's aux output (never a shared
+        ``last_aux``); a second call returns the same result. On the CPU
+        the extraction runs at once and the resolver returns it."""
+        if self._extract_fn is not None or np.shape(img_left) != np.shape(img_right):
+            return None
+        u8 = torch.from_numpy(np.stack([_img_u8(img_left), _img_u8(img_right)]))
+        if self.device.type != "cuda":
+            res = self._extract_u8(u8)
+            return lambda: res
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+        side = self._side_stream
+        # the side stream starts after the work already queued on the
+        # caller's stream (weights, earlier frames)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        staged = u8.pin_memory()
+        with self.perf.stage("submit"), torch.cuda.stream(side):
+            dev_u8 = staged.to(self.device, non_blocking=True)
+            out = superpoint_extract(self.model, dev_u8.float() / 255.0)
+            aux = self._aux_fn(dev_u8) if self._aux_fn is not None else None
+            kpts = torch.empty(out.kpts.shape, dtype=out.kpts.dtype, pin_memory=True)
+            valid = torch.empty(out.valid.shape, dtype=out.valid.dtype, pin_memory=True)
+            kpts.copy_(out.kpts, non_blocking=True)
+            valid.copy_(out.valid, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        result: List[Extraction] = []
+
+        def resolve() -> Extraction:
+            if not result:
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_event(done)
+                for t in (*out, aux):
+                    if t is not None:
+                        t.record_stream(cur)
+                done.synchronize()
+                result.append(Extraction(out, kpts.numpy(), valid.numpy(), aux))
+            return result[0]
+
+        return resolve
+
     def process_stereo(self, stamp: float, frame_id: int,
-                       img_left: np.ndarray, img_right: np.ndarray
+                       img_left: np.ndarray, img_right: np.ndarray,
+                       extracted: Optional[Callable[[], Extraction]] = None,
                        ) -> Optional[FrontendFrame]:
-        """Returns a FrontendFrame when this frame is a keyframe."""
-        imgL = np.asarray(img_left, np.float32)
-        imgR = np.asarray(img_right, np.float32)
+        """Returns a FrontendFrame when this frame is a keyframe.
+        ``extracted``: the resolver of ``submit_stereo_extraction`` for
+        these images; its aux output becomes ``last_aux``."""
+        imgL = _img_f32(img_left)
+        imgR = _img_f32(img_right)
         with self.perf.stage("extract"):
-            outs, kpts, valid = self.extract(np.stack([imgL, imgR]))
+            if extracted is not None:
+                res = extracted()
+                self.last_aux = res.aux
+                outs, kpts, valid = res.out, res.kpts, res.valid
+            else:
+                outs, kpts, valid = self.extract(np.stack([imgL, imgR]))
         with self.perf.stage("host"):
             return self._associate(stamp, frame_id, imgL, outs, kpts, valid)
 
@@ -395,7 +495,7 @@ class FeatureTracker:
         (reference matchLocalFeatures prediction_using_extrinsic,
         d2featuretracker.cpp:658-753); matched features across views are
         union-found into ONE landmark id."""
-        imgs = [np.asarray(im, np.float32) for im in imgs]
+        imgs = [_img_f32(im) for im in imgs]
         with self.perf.stage("extract"):
             if len({im.shape for im in imgs}) == 1:
                 outs, kpts, valid = self.extract(np.stack(imgs))

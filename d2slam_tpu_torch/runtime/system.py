@@ -311,25 +311,40 @@ class D2SLAMSystem:
     # keyframe fan-out: loop detection, PGO graph
     # ------------------------------------------------------------------
 
+    def _frame_gdesc(self, imgs, aux: Optional[torch.Tensor] = None) -> np.ndarray:
+        """A keyframe's global descriptor: ``aux`` (the network fused into
+        the extraction), else the tracker's ``last_aux``, else
+        ``gdesc_fn`` of view 0, else zeros."""
+        if aux is None:
+            aux = self.tracker.last_aux
+        if aux is not None:
+            return aux.cpu().numpy()
+        if imgs is not None:
+            return np.asarray(self.gdesc_fn(imgs[0]), np.float32)
+        return np.zeros(self.sys.gdesc_dim, np.float32)
+
+    def keyframe_inputs(self, imgs, aux: Optional[torch.Tensor] = None) -> Dict:
+        """What a keyframe's registration reads from the frontend, taken
+        now, as host arrays: ``gdesc`` (see ``_frame_gdesc``) and, with
+        loop detection, ``desc_of``, the tracker's last keyframe
+        descriptors by landmark id. The pipelined runtime takes them on
+        its frontend thread, before the tracker moves on, and passes them
+        to ``_register_keyframe``."""
+        desc_of = self._entry_descriptors() if self.sys.enable_loop_detection else None
+        return dict(gdesc=self._frame_gdesc(imgs, aux), desc_of=desc_of)
+
     def _register_keyframe(self, ff: FrontendFrame, od: Odometry, imgs,
                            gdesc: Optional[np.ndarray] = None,
-                           entry: Optional[KeyframeEntry] = None) -> None:
+                           entry: Optional[KeyframeEntry] = None,
+                           desc_of: Optional[Dict[int, np.ndarray]] = None) -> None:
         pose = np.asarray(od.pose, np.float64)
         self._add_pgo_node(self.drone_id, ff.frame_id, ff.stamp, pose)
 
-        if gdesc is None:
-            if self.tracker.last_aux is not None:
-                # computed inside the tracker's extraction of this frame
-                gdesc = self.tracker.last_aux.cpu().numpy()
-            elif imgs is not None:
-                gdesc = self.gdesc_fn(imgs[0])
-            else:
-                gdesc = np.zeros(self.sys.gdesc_dim, np.float32)
-        gdesc = np.asarray(gdesc, np.float32)
+        gdesc = np.asarray(self._frame_gdesc(imgs) if gdesc is None else gdesc, np.float32)
 
         if self.sys.enable_loop_detection:
             if entry is None:
-                entry = self._make_entry(ff, pose)
+                entry = self._make_entry(ff, pose, desc_of)
             else:
                 # refresh caller-provided entries with the post-solve pose
                 # and current landmark estimates (ids from the entry when
@@ -383,17 +398,10 @@ class D2SLAMSystem:
             self._pgo_executor.shutdown()
             self._pgo_executor = None
 
-    def _make_entry(self, ff: FrontendFrame, pose: np.ndarray) -> Optional[KeyframeEntry]:
-        """A retrieval-DB entry from all views' observations and the
-        current landmark estimates (quadcam entries carry the camera
-        index of each keypoint for multi-direction matching).
-
-        Each landmark enters once, from the first view that sees it. The
-        JAX package enters it once per view with the same descriptor
-        (its descriptors are looked up by landmark id), so a stereo
-        entry holds every descriptor twice and the ratio test of the loop
-        matcher, which compares a keypoint's two nearest neighbours,
-        rejects almost every match."""
+    def _entry_descriptors(self) -> Dict[int, np.ndarray]:
+        """Host copies of the tracker's last keyframe descriptors (of each
+        view, for a multi-view rig) by landmark id, the first view's where
+        several see a landmark."""
         desc_of = {}
         kfs = [self.tracker.last_kf] if self.tracker.last_kf else list(
             self.tracker.last_kf_mv.values())
@@ -403,6 +411,24 @@ class D2SLAMSystem:
                 for lid, d, v in zip(kf["ids"], desc, kf["valid"]):
                     if v and lid >= 0:
                         desc_of.setdefault(int(lid), d)
+        return desc_of
+
+    def _make_entry(self, ff: FrontendFrame, pose: np.ndarray,
+                    desc_of: Optional[Dict[int, np.ndarray]] = None) -> Optional[KeyframeEntry]:
+        """A retrieval-DB entry from all views' observations and the
+        current landmark estimates (quadcam entries carry the camera
+        index of each keypoint for multi-direction matching).
+        ``desc_of``: the keyframe's descriptors by landmark id, taken when
+        the frame was tracked (default: ``_entry_descriptors()`` now).
+
+        Each landmark enters once, from the first view that sees it. The
+        JAX package enters it once per view with the same descriptor
+        (its descriptors are looked up by landmark id), so a stereo
+        entry holds every descriptor twice and the ratio test of the loop
+        matcher, which compares a keypoint's two nearest neighbours,
+        rejects almost every match."""
+        if desc_of is None:
+            desc_of = self._entry_descriptors()
         ids, cams, rays, seen = [], [], [], set()
         for o in ff.observations:
             for lid, ray in zip(o.landmark_ids, np.asarray(o.rays, np.float64)):

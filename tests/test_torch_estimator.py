@@ -71,15 +71,3 @@ def test_estimator_matches_jax():
     tpred = test.predict_odometry(N_FRAMES / tsim.frame_hz - 0.05)
     np.testing.assert_allclose(tpred.pose, np.asarray(jpred.pose), atol=1e-6)
 
-
-def test_dynamic_start_names_roadmap():
-    sim = CircleSim(dynamic_start=True)
-    est = D2Estimator(_config(D2Config), sim.ext, device="cpu")
-    for (t, a, g) in sim.imu_samples(-0.3, 0.0):
-        est.input_imu(t, a, g)
-    try:
-        est.input_frame(sim.frame(0))
-    except NotImplementedError as e:
-        assert "ROADMAP" in str(e)
-    else:
-        raise AssertionError("dynamic start should raise NotImplementedError")

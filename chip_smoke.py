@@ -56,12 +56,40 @@ the hand-written stem kernel is on the path:
   (i) the dynamic start: tests/test_estimator.py::
       test_dynamic_start_sfm_init's scenario on the card (mono, moving at
       the start, SFM initialization), with that test's pins; and the
-      essential-matrix RANSAC on the card against the host path.
+      essential-matrix RANSAC on the card against the host path;
+  (j) the textured room (``utils.render.TexturedRoom``): the JAX
+      package's golden textured scenarios at 240x320
+      (tests/test_golden_textured.py: stereo ``D2SLAMSystem`` over 26
+      frames, pin 0.18 m; the 4-view ring over 16 frames, pin 0.2 m)
+      with the tests' float32 backbone; then ``D2SLAMSystem.input_stereo``
+      at 480x640, bf16, with NetVLAD fused, loop detection and PGO over one lap
+      and the revisit of its start; prints retrieval queries, loops
+      verified and kept by PCM, the NetVLAD similarity of true revisits
+      against other places, VIO and PGO ATE; asserts >= 1 loop kept and
+      one stem launch per frame (PGO against VIO ATE is printed: there
+      the loops' relative poses err as much as the odometry, so phase f
+      keeps that gate);
+  (k) the estimator's options at full width, 16 frames each of (c)'s
+      scene through ``D2SLAMSystem``: ``landmark_param="pos3d"`` and
+      ``solver_method="dogleg"`` beside the default run
+      (tests/test_pos3d.py's pins) and RGB-D through ``input_rgbd`` with
+      a depth image rendered from the scene (tests/test_tracker.py's
+      RGB-D pins); the default run's estimator saved and loaded back on
+      the card; and the two recovery tests of tests/test_online_calib.py
+      (``estimate_extrinsic`` from perturbed extrinsics, ``estimate_td``
+      with the camera 8 ms late) on their own oracle inputs, with their
+      pins (from the blob scene's image features they miss those pins:
+      PERF.md);
+  (l) the threaded quadcam depth replay (``runtime.depth_replay``) on
+      (d)'s rig with uint8 frames: serial against threaded ms per frame,
+      the uint8 upload against the float32 one; asserts the threaded
+      clouds equal the serial ones bit for bit, and two block-matching
+      launches per frame.
 
 The native pipeline library and LK are built with the kernels in (a).
-The launch counts of (c), (d), (e), (f) and (h) go into the ``kernels``
-line: each count is set to 0 just before its path runs and read just
-after.
+The launch counts of (c), (d), (e), (f), (h), (j), (k) and (l) go into
+the ``kernels`` line: each count is set to 0 just before its path runs
+and read just after.
 
 Every phase prints one line; any failure exits non-zero. The last three
 lines are the ``kernels`` JSON, the card's name and power limit from
@@ -119,11 +147,17 @@ from d2slam_tpu_torch.ops import stereo_bm as bm  # noqa: E402
 from d2slam_tpu_torch.pgo import PGOEdges, PGOLayout, PGOState, solve_pgo, solve_pgo_pcg  # noqa: E402
 from d2slam_tpu_torch.runtime import pipeline  # noqa: E402
 from d2slam_tpu_torch.runtime.dataset_vio import run_dataset_vio  # noqa: E402
+from d2slam_tpu_torch.runtime.depth_replay import (  # noqa: E402
+    DepthReplay,
+    clouds_equal,
+    serial_depth,
+)
 from d2slam_tpu_torch.runtime.system import D2SLAMSystem, SystemConfig  # noqa: E402
 from d2slam_tpu_torch.ops import superpoint_stem as stem  # noqa: E402
 from d2slam_tpu_torch.utils import np_lie  # noqa: E402
 from d2slam_tpu_torch.utils.native import nvcc  # noqa: E402
 from d2slam_tpu_torch.utils.render import (  # noqa: E402
+    TexturedRoom,
     cylinder_wall_disparity,
     make_signatures,
     render_blobs,
@@ -134,6 +168,7 @@ from d2slam_tpu_torch.utils.sim import (  # noqa: E402
     fisheye_ring_extrinsics,
     quadcam_extrinsics,
 )
+from d2slam_tpu_torch.utils.checkpoint import load_estimator, save_estimator  # noqa: E402
 from d2slam_tpu_torch.utils.euroc_writer import write_euroc_dataset  # noqa: E402
 from d2slam_tpu_torch.utils.evaluation import ate_rmse  # noqa: E402
 from d2slam_tpu_torch.utils.synthetic import (  # noqa: E402
@@ -194,6 +229,21 @@ DATASET_POS_ATOL, DATASET_GDESC_ATOL, DATASET_ATE = 1e-3, 1e-5, 0.05
 DYN_FRAMES, DYN_MIN_OUT, DYN_SPEED, DYN_SPEED_TOL, DYN_ATE = 16, 8, 2.5, 0.3, 0.25
 # the essential-matrix RANSAC, card against host: rotation within (rad)
 REL_POSE_ROT_TOL = 1e-3
+# phase j: tests/test_golden_textured.py's pins (m); the full-width run
+# goes round the lap of phase f in the textured room of the golden test
+TEXTURED_VIO_ATE, TEXTURED_QUADCAM_ATE = 0.18, 0.2
+TEXTURED_FRAMES = SYSTEM_FRAMES
+# phase k: 16 frames per option; pins of tests/test_pos3d.py (ATE and
+# its distance to the default run's, m), tests/test_online_calib.py
+# (rotation and translation error left of the perturbation, td error
+# as a share of the delay) and tests/test_tracker.py's RGB-D test
+# (depth-carrying keypoints, a depth equal to a landmark's z within)
+OPTION_FRAMES = 16
+OPTION_ATE, OPTION_ATE_GAP = 0.03, 0.03
+CALIB_ROT_SHARE, CALIB_TRANS_SHARE, CALIB_TD, CALIB_TD_SHARE = 0.35, 0.6, 0.008, 0.35
+RGBD_MIN_DEPTHS, RGBD_DEPTH_TOL = 20, 1e-6
+# phase l: frames of the threaded depth replay
+REPLAY_FRAMES = 12
 
 
 def fail(msg):
@@ -517,12 +567,82 @@ def trajectory_ate(stamps, poses, sim):
     return float(np.sqrt(np.mean(np.square(errs))))
 
 
-def run_system(params, dev, H, W, fx, n_frames, n_landmarks=300):
-    """(f) ``D2SLAMSystem.input_stereo`` over the CircleSim stereo scene
-    of (c); returns the metrics and the PnP correspondences of the last
-    loop query whose PnP found a pose."""
-    sim = CircleSim(seed=7, baseline=0.2, n_landmarks=n_landmarks)
+def render_ahead(jobs):
+    """Run zero-argument render jobs on a thread pool (numpy frees the
+    interpreter lock in its array work) before a timed loop; returns
+    their results in order."""
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        return list(pool.map(lambda job: job(), jobs))
+
+
+def blob_pairs(sim, H, W, fx):
+    """The stereo blob renders of (c)'s scene, one pair per call."""
     inten = sim.rng.uniform(0.5, 1.0, len(sim.lms))
+
+    def render(t):
+        pose_gt, _ = sim.gt_pose(t)
+        return [render_blobs(sim.lms, np_lie.pose_compose(pose_gt, sim.ext[c]),
+                             fx, fx, W / 2, H / 2, H, W, intensities=inten)
+                for c in range(2)]
+    return render
+
+
+def room_views(room, ext, H, W, fx):
+    """Views of a ``TexturedRoom`` through the cameras ``ext`` at a body
+    pose, with tests/test_golden_textured.py's lighting: a gain that
+    varies with time and vignetting."""
+    def render(pose, t):
+        gain = 1.0 + 0.1 * np.sin(2.1 * t)
+        return [room.render(np_lie.pose_compose(pose, e), fx, fx, W / 2, H / 2, H, W,
+                            gain=gain, vignette=0.25) for e in ext]
+    return render
+
+
+def netvlad_separation(system, sim, near_m=1.0, far_m=3.0, min_gap=20):
+    """Does NetVLAD separate places? For each database keyframe, the best
+    similarity to an earlier keyframe within ``near_m`` of its true
+    position and ``min_gap`` keyframes back (a revisit), and the best to
+    one farther than ``far_m`` (another place); medians and counts."""
+    det = system.detector
+    n = len(det.entries)
+    if n < 2:
+        return None
+    G = np.asarray(det.gdesc[:n], np.float64)
+    pos = np.stack([sim.gt_pose(e.stamp)[0][:3] for e in det.entries[:n]])
+    sims = G @ G.T
+    dist = np.linalg.norm(pos[:, None] - pos[None], axis=-1)
+    idx = np.arange(n)
+    revisit, other = [], []
+    for i in range(n):
+        back = idx < i - min_gap
+        near, far = back & (dist[i] < near_m), (idx < i) & (dist[i] > far_m)
+        if near.any():
+            revisit.append(float(sims[i][near].max()))
+            if far.any():
+                other.append(float(sims[i][far].max()))
+    if not revisit:
+        return dict(revisit_queries=0)
+    return dict(revisit_queries=len(revisit), revisit_sim_median=float(np.median(revisit)),
+                other_place_sim_median=float(np.median(other)) if other else None,
+                revisit_above_other=int(sum(r > o for r, o in zip(revisit, other))),
+                all_pairs_sim_percentiles=[float(np.percentile(sims[np.triu_indices(n, 1)], q))
+                                           for q in (5, 50, 95)])
+
+
+def run_system(params, dev, H, W, fx, n_frames, n_landmarks=300, sim=None, render=None):
+    """(f, j) ``D2SLAMSystem.input_stereo`` over a CircleSim stereo run:
+    by default the blob scene of (c); ``render(pose, t)`` gives the
+    stereo pair of another scene (rendered ahead of the timed loop).
+    Returns the metrics and the PnP correspondences of the last loop
+    query whose PnP found a pose."""
+    if sim is None:
+        sim = CircleSim(seed=7, baseline=0.2, n_landmarks=n_landmarks)
+    stamps_in = [k / sim.frame_hz for k in range(n_frames)]
+    if render is None:
+        blobs = blob_pairs(sim, H, W, fx)
+        frames = [blobs(t) for t in stamps_in]
+    else:
+        frames = render_ahead([lambda t=t: render(sim.gt_pose(t)[0], t) for t in stamps_in])
     cfg = D2Config()
     cfg.estimator.focal_length = fx
     cams = [PinholeParams.make(fx, fx, W / 2, H / 2) for _ in range(2)]
@@ -557,11 +677,7 @@ def run_system(params, dev, H, W, fx, n_frames, n_landmarks=300):
                 for (ts, a, g) in sim.imu_samples(t_prev + 1e-6, t + 1e-6):
                     system.input_imu(ts, a, g)
             t_prev = t
-            pose_gt, _ = sim.gt_pose(t)
-            imgs = [render_blobs(sim.lms, np_lie.pose_compose(pose_gt, sim.ext[c]),
-                                 fx, fx, W / 2, H / 2, H, W, intensities=inten)
-                    for c in range(2)]
-            n_kf += system.input_stereo(t, imgs[0], imgs[1]) is not None
+            n_kf += system.input_stereo(t, *frames[k]) is not None
         system.solve_pgo()   # the last keyframes join the graph
     finally:
         loop_detector.ransac_pnp_body = ransac_pnp_body
@@ -584,6 +700,7 @@ def run_system(params, dev, H, W, fx, n_frames, n_landmarks=300):
         netvlad_ms_per_frame=(time_ms(lambda: nv(u8.float() / 255.0), iters=20)
                               if dev.type == "cuda" else float("nan")),
         ate_ego_m=trajectory_ate(stamps, ego, sim), ate_pgo_m=trajectory_ate(stamps, opt, sim),
+        netvlad_separation=netvlad_separation(system, sim),
         finite=bool(np.isfinite(opt).all() and np.isfinite(ego).all()),
         extract_ms_per_frame=system.tracker.perf.report()["extract"]["mean_ms"],
         tracker_host_ms_per_frame=system.tracker.perf.report()["host"]["mean_ms"],
@@ -1045,13 +1162,471 @@ def phase_quadcam_depth(dev, n_frames=6):
     return res
 
 
+def pose_ate(poses, gts):
+    """ATE (RMSE, m) of estimated poses against ground-truth poses,
+    aligned on the first (the estimator's gauge)."""
+    T = np_lie.pose_compose(gts[0], np_lie.pose_inverse(np.asarray(poses[0], np.float64)))
+    return float(np.sqrt(np.mean([np.sum((np_lie.pose_compose(T, p)[:3] - g[:3]) ** 2)
+                                  for p, g in zip(poses, gts)])))
+
+
+def textured_golden_vio(params, dev, compute_dtype="float32"):
+    """tests/test_golden_textured.py::test_golden_textured_vio on the card,
+    with the test's float32 backbone or the bf16 one (the stem kernel)."""
+    H, W, fx = 240, 320, 220.0
+    room = TexturedRoom(half=14.0, height=7.0, seed=3)
+    sim = CircleSim(seed=11, baseline=0.2, n_landmarks=10)
+    system = D2SLAMSystem(
+        golden_config(), SystemConfig(enable_loop_detection=False, enable_pgo=False), sim.ext,
+        [PinholeParams.make(fx, fx, W / 2, H / 2) for _ in range(2)], sp_params=params,
+        sp_cfg=SuperPointConfig(max_keypoints=200, threshold=0.008, compute_dtype=compute_dtype),
+        tracker_cfg=TrackerConfig(min_keyframe_parallax=4.0, search_radius=30.0),
+        frame_rate=sim.frame_hz, device=dev)
+    render = room_views(room, sim.ext, H, W, fx)
+    stamps = [k / sim.frame_hz for k in range(26)]
+    frames = render_ahead([lambda t=t: render(sim.gt_pose(t)[0], t) for t in stamps])
+    for (t, a, g) in sim.imu_samples(-0.3, 0.0):
+        system.input_imu(t, a, g)
+    stem.launches = 0
+    t_prev, poses, gts, t0 = 0.0, [], [], time.perf_counter()
+    for k, t in enumerate(stamps):
+        if k:
+            for (ts, a, g) in sim.imu_samples(t_prev + 1e-6, t + 1e-6):
+                system.input_imu(ts, a, g)
+        t_prev = t
+        od = system.input_stereo(t, *frames[k])
+        if od is not None:
+            poses.append(od.pose)
+            gts.append(sim.gt_pose(t)[0])
+    torch.cuda.synchronize()
+    return dict(frames=len(stamps), keyframes=len(poses), ate_m=pose_ate(poses, gts),
+                stem_launches=stem.launches, ms_per_frame=(time.perf_counter() - t0) * 1e3 / 26,
+                poses=np.asarray(poses, np.float64))
+
+
+def textured_golden_quadcam(params, dev):
+    """tests/test_golden_textured.py::test_golden_textured_quadcam on the
+    card, with the test's float32 backbone."""
+    H, W, fx = 240, 320, 220.0
+    ext = quadcam_extrinsics()
+    sim = CircleSim(seed=7, n_landmarks=10, extrinsics=ext, fov_cos=0.5)
+    room = TexturedRoom(half=14.0, height=7.0, seed=5)
+    sp_cfg = SuperPointConfig(max_keypoints=150, threshold=0.010, nms_radius=4,
+                              compute_dtype="float32")
+    tracker = FeatureTracker(SuperPoint(params, sp_cfg, device=dev), sp_cfg,
+                             [PinholeParams.make(fx, fx, W / 2, H / 2) for _ in range(4)],
+                             TrackerConfig(min_keyframe_parallax=4.0, search_radius=30.0),
+                             frame_rate=sim.frame_hz, extrinsics=ext)
+    est = D2Estimator(golden_config(4, 160, 640), ext, device=dev)
+    render = room_views(room, ext, H, W, fx)
+    stamps = [k / sim.frame_hz for k in range(16)]
+    frames = render_ahead([lambda t=t: render(sim.gt_pose(t)[0], t) for t in stamps])
+    for (t, a, g) in sim.imu_samples(-0.3, 0.0):
+        est.input_imu(t, a, g)
+    stem.launches = 0
+    t_prev, poses, gts = 0.0, [], []
+    for k, t in enumerate(stamps):
+        if k:
+            for (ts, a, g) in sim.imu_samples(t_prev + 1e-6, t + 1e-6):
+                est.input_imu(ts, a, g)
+        t_prev = t
+        ff = tracker.process_quadcam(t, k, frames[k])
+        od = est.input_frame(ff) if ff is not None else None
+        if od is not None:
+            poses.append(od.pose)
+            gts.append(sim.gt_pose(t)[0])
+    return dict(frames=len(stamps), keyframes=len(poses), ate_m=pose_ate(poses, gts),
+                stem_launches=stem.launches)
+
+
+def phase_textured(params, dev):
+    """(j) the golden textured scenarios with the JAX tests' float32
+    backbone (held to their pins); the stereo one twice more with the
+    bf16 stem kernel (printed: how far two runs of one input part on the
+    card); then the system with loops at full width in the textured
+    room (bf16, the stem kernel's path)."""
+    vio = textured_golden_vio(params, dev)
+    quad = textured_golden_quadcam(params, dev)
+    bf16 = [textured_golden_vio(params, dev, "bfloat16") for _ in range(2)]
+    spread = float(np.abs(bf16[0]["poses"] - bf16[1]["poses"]).max()) if (
+        bf16[0]["poses"].shape == bf16[1]["poses"].shape) else float("nan")
+    sim = CircleSim(seed=11, baseline=0.2, n_landmarks=10)
+    room = TexturedRoom(half=14.0, height=7.0, seed=3)
+    full, pnp_args = run_system(params, dev, 480, 640, 440.0, TEXTURED_FRAMES, sim=sim,
+                                render=room_views(room, sim.ext, 480, 640, 440.0))
+    for r in [vio] + bf16:
+        r.pop("poses")
+    res = dict(golden_vio=vio, golden_quadcam=quad, golden_vio_bf16=bf16,
+               golden_vio_bf16_runs_max_pose_diff=spread, system_480x640=full)
+    print("phase j (textured room: golden 240x320 stereo and quadcam, stereo with the bf16 "
+          "stem twice, system 480x640 with loops): " + json.dumps(res), flush=True)
+    if (vio["keyframes"] < 15 or not vio["ate_m"] < TEXTURED_VIO_ATE
+            or quad["keyframes"] < 10 or not quad["ate_m"] < TEXTURED_QUADCAM_ATE):
+        fail(f"textured golden scenarios out of their pins: {vio} / {quad}")
+    # PGO against VIO is printed here, not gated. In this room the JAX
+    # package, run on the same frames at this width (float32 on the CPU,
+    # tests/test_torch_image_witness.py), verifies the one loop this
+    # system verifies and PGO moves the trajectory by what that loop's
+    # error and the odometry's drift make it; the port equals it there.
+    # Phase f holds the gate on its blob lap.
+    if not full["finite"] or full["pgo_solves"] < 2 or full["loops_kept_by_pcm"] < 1:
+        fail(f"textured-room system out of its pins: {full}")
+    for r in bf16 + [full]:
+        if r["stem_launches"] != r["frames"]:
+            fail(f"phase j: stem launches {r['stem_launches']} != frames {r['frames']}")
+    return res, pnp_args
+
+
+def perturbed_extrinsics(ext):
+    """tests/test_online_calib.py's perturbation: 3 degrees of rotation
+    about a random axis and 2 cm of translation on each camera."""
+    rng = np.random.default_rng(7)
+    pert = ext.copy()
+    for c in range(len(pert)):
+        axis = rng.normal(0, 1, 3)
+        axis /= np.linalg.norm(axis)
+        ang = np.radians(3.0)
+        pert[c, 3:] = np_lie.quat_mul(pert[c, 3:], np.concatenate(
+            [np.sin(ang / 2) * axis, [np.cos(ang / 2)]]))
+        pert[c, :3] += rng.normal(0, 0.02, 3)
+    return pert
+
+
+def rot_err_deg(q_est, q_true):
+    dq = np_lie.quat_mul(np_lie.quat_conj(np.asarray(q_true, np.float64)),
+                         np.asarray(q_est, np.float64))
+    return float(np.degrees(2 * np.arcsin(min(1.0, np.linalg.norm(dq[:3])))))
+
+
+def splat_depth(pts_w, T_cam, fx, H, W):
+    """The scene's depth image: each landmark's camera-frame z on a 7x7
+    disk around its projection, 0 (no measurement) elsewhere."""
+    pc = (pts_w - T_cam[:3]) @ np_lie.quat_to_rotmat(T_cam[3:])
+    d = np.zeros((H, W))
+    for p in pc[pc[:, 2] > 0.5]:
+        u, v = int(round(fx * p[0] / p[2] + W / 2)), int(round(fx * p[1] / p[2] + H / 2))
+        if 3 <= u < W - 3 and 3 <= v < H - 3:
+            d[v - 3: v + 4, u - 3: u + 4] = p[2]
+    return d
+
+
+def run_option(params, dev, option, H=480, W=640, fx=440.0, n_frames=OPTION_FRAMES):
+    """(k) ``D2SLAMSystem`` over (c)'s scene with one estimator option:
+    "default", "pos3d", "dogleg" or "rgbd" (camera 0 and a depth image
+    through ``input_rgbd``)."""
+    sim = CircleSim(seed=7, baseline=0.2, n_landmarks=300)
+    inten = sim.rng.uniform(0.5, 1.0, len(sim.lms))
+    cfg = D2Config()
+    e = cfg.estimator
+    e.focal_length = fx
+    ext, tr_kw = sim.ext, {}
+    if option == "pos3d":
+        e.landmark_param = "pos3d"
+    elif option == "dogleg":
+        e.solver_method = "dogleg"
+    elif option == "rgbd":
+        cfg.num_cams = 1
+        ext = sim.ext[:1]
+        tr_kw = dict(depth_min=0.3, depth_max=20.0)
+    system = D2SLAMSystem(
+        cfg, SystemConfig(enable_loop_detection=False, enable_pgo=False), ext,
+        [PinholeParams.make(fx, fx, W / 2, H / 2) for _ in ext], sp_params=params,
+        sp_cfg=SuperPointConfig(compute_dtype="bfloat16"), tracker_cfg=TrackerConfig(**tr_kw),
+        frame_rate=sim.frame_hz, device=dev)
+    stamps = [k / sim.frame_hz for k in range(n_frames)]
+
+    def render(t):
+        pose_gt, _ = sim.gt_pose(t)
+        T = [np_lie.pose_compose(pose_gt, sim.ext[c]) for c in range(len(ext))]
+        imgs = [render_blobs(sim.lms, Tc, fx, fx, W / 2, H / 2, H, W, intensities=inten)
+                for Tc in T]
+        return imgs + ([splat_depth(sim.lms, T[0], fx, H, W), T[0]] if option == "rgbd" else [])
+
+    frames = render_ahead([lambda t=t: render(t) for t in stamps])
+    attached = []
+    if option == "rgbd":
+        track = system.tracker.process_rgbd
+
+        def recording(t, k, img, depth):
+            ff = track(t, k, img, depth)
+            if ff is not None:
+                o = ff.observations[0]
+                attached.append((k, o.depths * o.rays[:, 2]))   # the measured z back
+            return ff
+        system.tracker.process_rgbd = recording
+    for (t, a, g) in sim.imu_samples(-0.3, 0.0):
+        system.input_imu(t, a, g)
+    system.tracker.extract(np.zeros((len(ext), H, W), np.float32))   # warm; not counted
+    torch.cuda.synchronize()
+    stem.launches = 0
+    t_prev, poses, gts, t0 = 0.0, [], [], time.perf_counter()
+    for k, t in enumerate(stamps):
+        if k:
+            for (ts, a, g) in sim.imu_samples(t_prev + 1e-6, t + 1e-6):
+                system.input_imu(ts, a, g)
+        t_prev = t
+        f = frames[k]
+        od = (system.input_rgbd(t, f[0], f[1]) if option == "rgbd"
+              else system.input_stereo(t, f[0], f[1]))
+        if od is not None:
+            poses.append(od.pose)
+            gts.append(sim.gt_pose(t)[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    est = system.estimator
+    res = dict(option=option, frames=n_frames, keyframes=len(poses), solves=est.solve_count,
+               ate_m=pose_ate(poses, gts) if poses else float("nan"),
+               finite=bool(poses) and bool(np.isfinite(np.asarray(poses)).all()),
+               stem_launches=stem.launches, ms_per_frame=wall * 1e3 / n_frames,
+               estimator_ms_per_keyframe=sum(v["mean_ms"] for v in est.perf.report().values()),
+               estimator_stages={k: v["mean_ms"] for k, v in est.perf.report().items()})
+    if option == "default":
+        res.update(checkpoint=checkpoint_roundtrip(system, stamps[-1] + 0.05))
+    if option == "rgbd":
+        n_dep, worst = 0, 0.0
+        for k, dep in attached:
+            T = frames[k][2]
+            z = ((sim.lms - T[:3]) @ np_lie.quat_to_rotmat(T[3:]))[:, 2]
+            pos = dep[dep > 0]
+            n_dep += len(pos)
+            if len(pos):
+                worst = max(worst, float(np.abs(z[None] - pos[:, None]).min(1).max()))
+        res.update(depth_keypoints=n_dep, depth_max_err_m=worst)
+    return res
+
+
+def calibration_tests(dev):
+    """tests/test_online_calib.py's two recovery tests on the card, on
+    their own inputs (CircleSim's oracle features, 24 frames, window 8):
+    the extrinsics from the perturbation, td from an 8 ms delay."""
+    def run(sim, ext, **flags):
+        cfg = golden_config(measurements=512)
+        cfg.estimator.max_solver_iters = 8
+        cfg.estimator.focal_length = D2Config().estimator.focal_length
+        for k, v in flags.items():
+            setattr(cfg.estimator, k, v)
+        est = D2Estimator(cfg, ext, device=dev)
+        for (t, a, g) in sim.imu_samples(-0.3, 0.0):
+            est.input_imu(t, a, g)
+        t_prev, t0 = 0.0, time.perf_counter()
+        for k in range(24):
+            t = k / sim.frame_hz
+            if k:
+                for (ts, a, g) in sim.imu_samples(t_prev + 1e-6, t + 1e-6):
+                    est.input_imu(ts, a, g)
+            t_prev = t
+            est.input_frame(sim.frame(k))
+        torch.cuda.synchronize()
+        return est, (time.perf_counter() - t0) * 1e3 / est.solve_count
+
+    sim = CircleSim(n_landmarks=300, seed=3, baseline=0.2, wobble=0.18)
+    pert = perturbed_extrinsics(sim.ext)
+    est, ms = run(sim, pert, estimate_extrinsic=True)
+    got = est.state.ext.cpu().double().numpy()
+    ext = dict(rot_err_deg=[[rot_err_deg(pert[c, 3:], sim.ext[c, 3:]),
+                             rot_err_deg(got[c, 3:], sim.ext[c, 3:])] for c in range(2)],
+               trans_err_m=[[float(np.linalg.norm(pert[c, :3] - sim.ext[c, :3])),
+                             float(np.linalg.norm(got[c, :3] - sim.ext[c, :3]))]
+                            for c in range(2)], ms_per_solve=ms)
+    sim = CircleSim(n_landmarks=300, seed=5, baseline=0.2, cam_td=CALIB_TD)
+    est, ms = run(sim, sim.ext, estimate_td=True)
+    td = dict(td_s=float(est.state.td), ms_per_solve=ms,
+              finite=bool(np.isfinite(est.latest_odometry().pose).all()))
+    return dict(extrinsic=ext, td=td)
+
+
+def calibration_from_images(params, dev, mode, H=480, W=640, fx=440.0, n_frames=24):
+    """(k) tests/test_online_calib.py's recovery runs from rendered blob
+    images through ``D2SLAMSystem`` (bf16 stem): ``mode`` "extrinsic"
+    (the perturbed extrinsics given to the system) or "td" (the images
+    rendered 8 ms after their stamps). Printed beside the oracle runs,
+    not gated: from images neither package holds those pins (PERF.md)."""
+    if mode == "extrinsic":
+        sim = CircleSim(n_landmarks=300, seed=3, baseline=0.2, wobble=0.18)
+        ext = perturbed_extrinsics(sim.ext)
+    else:
+        sim = CircleSim(n_landmarks=300, seed=5, baseline=0.2, cam_td=CALIB_TD)
+        ext = sim.ext
+    inten = sim.rng.uniform(0.5, 1.0, len(sim.lms))
+    cfg = golden_config()
+    cfg.estimator.max_solver_iters = 8
+    cfg.estimator.focal_length = fx
+    setattr(cfg.estimator, "estimate_extrinsic" if mode == "extrinsic" else "estimate_td", True)
+    system = D2SLAMSystem(
+        cfg, SystemConfig(enable_loop_detection=False, enable_pgo=False), ext,
+        [PinholeParams.make(fx, fx, W / 2, H / 2) for _ in range(2)], sp_params=params,
+        sp_cfg=SuperPointConfig(compute_dtype="bfloat16"), frame_rate=sim.frame_hz, device=dev)
+    stamps = [k / sim.frame_hz for k in range(n_frames)]
+
+    def render(t):
+        pose_c = sim.gt_pose(t + sim.cam_td)[0]   # the capture instant
+        return [render_blobs(sim.lms, np_lie.pose_compose(pose_c, sim.ext[c]), fx, fx,
+                             W / 2, H / 2, H, W, intensities=inten) for c in range(2)]
+
+    frames = render_ahead([lambda t=t: render(t) for t in stamps])
+    for (t, a, g) in sim.imu_samples(-0.3, 0.0):
+        system.input_imu(t, a, g)
+    stem.launches = 0
+    t_prev, poses, gts, t0 = 0.0, [], [], time.perf_counter()
+    for k, t in enumerate(stamps):
+        if k:
+            for (ts, a, g) in sim.imu_samples(t_prev + 1e-6, t + 1e-6):
+                system.input_imu(ts, a, g)
+        t_prev = t
+        od = system.input_stereo(t, *frames[k])
+        if od is not None:
+            poses.append(od.pose)
+            gts.append(sim.gt_pose(t)[0])
+    torch.cuda.synchronize()
+    est = system.estimator
+    res = dict(frames=n_frames, keyframes=len(poses), ate_m=pose_ate(poses, gts),
+               stem_launches=stem.launches,
+               ms_per_keyframe=(time.perf_counter() - t0) * 1e3 / max(est.solve_count, 1))
+    if mode == "extrinsic":
+        got = est.state.ext.cpu().double().numpy()
+        res.update(rot_err_deg=[[rot_err_deg(ext[c, 3:], sim.ext[c, 3:]),
+                                 rot_err_deg(got[c, 3:], sim.ext[c, 3:])] for c in range(2)],
+                   trans_err_m=[[float(np.linalg.norm(ext[c, :3] - sim.ext[c, :3])),
+                                 float(np.linalg.norm(got[c, :3] - sim.ext[c, :3]))]
+                                for c in range(2)])
+    else:
+        res.update(td_s=float(est.state.td))
+    return res
+
+
+def checkpoint_roundtrip(system, t_ahead):
+    """Save the system's estimator, load it into a fresh one on the card:
+    the state and prior come back equal; and the IMU-rate odometry a
+    little past the last frame."""
+    est = system.estimator
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = os.path.join(tmp, "est.npz")
+        save_estimator(path, est)
+        est2 = D2Estimator(est.cfg, system.ext, device=est.device)
+        load_estimator(path, est2)
+    same = (all(torch.equal(a, b) for a, b in zip(est.state, est2.state))
+            and torch.equal(est.prior.J, est2.prior.J) and est2.frames[-1].frame_id
+            == est.frames[-1].frame_id)
+    od = est.imu_propagated_odometry(t_ahead)
+    return dict(equal=bool(same), imu_odometry_finite=bool(np.isfinite(od.pose).all()))
+
+
+def phase_options(params, dev):
+    """(k) the estimator's options at full width against the default, the
+    calibration tests on their own inputs, and calibration from images."""
+    runs = {opt: run_option(params, dev, opt)
+            for opt in ("default", "pos3d", "dogleg", "rgbd")}
+    runs["calibration_tests"] = calib = calibration_tests(dev)
+    runs["calibration_from_images"] = {m: calibration_from_images(params, dev, m)
+                                       for m in ("extrinsic", "td")}
+    print("phase k (estimator options at 480x640, 16 frames each; the calibration tests "
+          "on their oracle inputs, gated, and from images at 480x640, printed): "
+          + json.dumps(runs), flush=True)
+    base = runs["default"]["ate_m"]
+    for opt in ("pos3d", "dogleg"):
+        r = runs[opt]
+        if not (r["finite"] and r["ate_m"] < OPTION_ATE and abs(r["ate_m"] - base) < OPTION_ATE_GAP):
+            fail(f"{opt} run out of its pins (ATE < {OPTION_ATE} m, within {OPTION_ATE_GAP} m "
+                 f"of the default run's {base}): {r}")
+    c, d = calib["extrinsic"], calib["td"]
+    if not (all(r1 < CALIB_ROT_SHARE * r0 for r0, r1 in c["rot_err_deg"])
+            and all(t1 < CALIB_TRANS_SHARE * t0 for t0, t1 in c["trans_err_m"])):
+        fail(f"extrinsic calibration out of tests/test_online_calib.py's pins: {c}")
+    if not (d["finite"] and abs(d["td_s"] - CALIB_TD) < CALIB_TD_SHARE * CALIB_TD):
+        fail(f"td calibration out of tests/test_online_calib.py's pin: {d}")
+    if not all(runs["default"]["checkpoint"].values()):
+        fail(f"estimator checkpoint on the card: {runs['default']['checkpoint']}")
+    r = runs["rgbd"]
+    if not (r["finite"] and r["depth_keypoints"] >= RGBD_MIN_DEPTHS
+            and r["depth_max_err_m"] < RGBD_DEPTH_TOL):
+        fail(f"RGB-D run out of its pins: {r}")
+    for opt, r in list(runs.items()) + list(runs["calibration_from_images"].items()):
+        if not opt.startswith("calibration") and r["stem_launches"] != r["frames"]:
+            fail(f"phase k {opt}: stem launches {r['stem_launches']} != frames {r['frames']}")
+    return runs
+
+
+def phase_depth_replay(dev, n_frames=REPLAY_FRAMES):
+    """(l) the threaded depth replay on (d)'s rig with uint8 frames."""
+    from d2slam_tpu_torch.depth.quadcam import _stack
+
+    HF, WF = 480, 640
+    ext = fisheye_ring_extrinsics(0.3)
+    fish = [KBParams.make(190.0, 190.0, WF / 2, HF / 2, k2=0.005) for _ in range(4)]
+    cfg = QuadcamConfig(out_hw=(240, 320), min_z=1.0, max_z=20.0)
+    pairs = build_virtual_stereo(fish, ext, cfg, device=dev)
+    tints = np.array([[1.0, 0.6, 0.6], [0.6, 1.0, 0.6], [0.6, 0.6, 1.0], [1.0, 1.0, 0.6]])
+
+    def frame(k):
+        imgs = np.stack([render_cylinder_wall(fish[i], ext[i], (HF, WF), WALL_RADIUS, seed=k)
+                         for i in range(4)])
+        return (np.round(imgs * 255).astype(np.uint8),
+                np.round(imgs[..., None] * tints[:, None, None, :] * 255).astype(np.uint8))
+
+    frames = render_ahead([lambda k=k: frame(k) for k in range(n_frames)])
+    serial_depth(frames[:1], pairs, cfg, device=dev)   # warm
+    torch.cuda.synchronize()
+    bm.launches = 0
+    t0 = time.perf_counter()
+    serial = serial_depth(frames, pairs, cfg, device=dev)
+    serial_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+    launches_serial, bm.launches = bm.launches, 0
+    replay = DepthReplay(pairs, cfg, device=dev)
+    t0 = time.perf_counter()
+    threaded = replay.run(frames)
+    threaded_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+    launches_threaded = bm.launches
+    equal = clouds_equal(threaded, serial)
+
+    # the upload of one frame's images and textures: uint8 from pinned
+    # staging, converted on the card, against float32 of the same values
+    def upload(pair):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = [_stack(x, dev) for x in pair]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, out
+
+    f32 = [tuple(x.astype(np.float32) for x in f) for f in frames]
+    upload(frames[0])
+    upload(f32[0])   # warm both routes
+    u8_ms, f32_ms, same = [], [], True
+    for fu, ff in zip(frames, f32):
+        tu, a = upload(fu)
+        tf, b = upload(ff)
+        u8_ms.append(tu)
+        f32_ms.append(tf)
+        same &= all(torch.equal(x, y) for x, y in zip(a, b))
+    res = dict(frames=n_frames, clouds_equal=equal, uploads_equal=bool(same),
+               serial_ms_per_frame=serial_ms, threaded_ms_per_frame=threaded_ms,
+               stage_ms={k: v.mean_ms for k, v in replay.stats.items()},
+               bm_launches=[launches_serial, launches_threaded],
+               upload_u8_ms=float(np.mean(u8_ms)), upload_f32_ms=float(np.mean(f32_ms)),
+               upload_u8_mbytes=sum(x.nbytes for x in frames[0]) / 1e6,
+               upload_f32_mbytes=sum(x.nbytes for x in f32[0]) / 1e6)
+    print("phase l (threaded quadcam depth replay, uint8 frames): " + json.dumps(res),
+          flush=True)
+    if not (equal and same):
+        fail(f"threaded replay or uint8 upload differ from the serial / float32 route: {res}")
+    if launches_threaded != 2 * n_frames or launches_serial != 2 * n_frames:
+        fail(f"stereo_bm launches {res['bm_launches']} != 2 x {n_frames} frames")
+    return res
+
+
 def main():
+    t_start = time.perf_counter()
+
+    def mark(phases):
+        print(f"chip_smoke: phases {phases} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     params = load_params(WEIGHTS)
     kernel_rows = phase_kernels(params, dev)
     bm_rows = phase_bm_kernel(dev)
+    mark("a")
 
     res = {}
     for cdt in ("bfloat16", "float32"):
@@ -1082,7 +1657,9 @@ def main():
     if res["stem_launches"] != res["frames"]:
         fail(f"stem launches {res['stem_launches']} != frames {res['frames']}")
 
+    mark("b-c")
     depth = phase_quadcam_depth(dev)
+    mark("d")
 
     sp_cfg = SuperPointConfig(max_keypoints=150, threshold=0.010, nms_radius=4,
                               compute_dtype="bfloat16")
@@ -1097,6 +1674,7 @@ def main():
     if quad["stem_launches"] != quad["frames"]:
         fail(f"stem launches {quad['stem_launches']} != frames {quad['frames']}")
 
+    mark("e")
     sysres, pnp_args = run_system(params, dev, 480, 640, 440.0, SYSTEM_FRAMES)
     print("phase f (D2SLAMSystem 480x640, NetVLAD fused, loops, PCM, PGO): "
           + json.dumps(sysres), flush=True)
@@ -1106,9 +1684,21 @@ def main():
     if sysres["stem_launches"] != sysres["frames"] or sysres["netvlad_runs"] != sysres["frames"]:
         fail(f"stem launches {sysres['stem_launches']} / NetVLAD runs {sysres['netvlad_runs']} "
              f"!= frames {sysres['frames']}")
-    phase_pgo(dev, pnp_args)
+    mark("f")
+    textured, room_pnp = phase_textured(params, dev)
+    mark("j")
+    # PnP on the correspondences of a loop query: the textured room's
+    # where it had one
+    phase_pgo(dev, room_pnp if "args" in room_pnp else pnp_args)
+    mark("g")
     dataset = phase_dataset(params, dev)
+    mark("h")
     phase_dynamic_start(dev)
+    mark("i")
+    options = phase_options(params, dev)
+    mark("k")
+    replay = phase_depth_replay(dev)
+    mark("l")
 
     big = kernel_rows["2x480x640"]
     euroc = kernel_rows[f"2x{EUROC_H}x{EUROC_W}"]
@@ -1119,7 +1709,12 @@ def main():
         "source": "d2slam_tpu_torch/csrc/superpoint_stem.cu",
         "replaces": "d2slam_tpu/ops/superpoint_stem_pallas.py:51",
         "launches": (res["stem_launches"] + quad["stem_launches"] + sysres["stem_launches"]
-                     + sum(dataset["stem_launches"])),
+                     + sum(dataset["stem_launches"])
+                     + textured["system_480x640"]["stem_launches"]
+                     + sum(r["stem_launches"] for r in textured["golden_vio_bf16"])
+                     + sum(r["stem_launches"] for k, r in options.items()
+                           if not k.startswith("calibration"))
+                     + sum(r["stem_launches"] for r in options["calibration_from_images"].values())),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
@@ -1134,7 +1729,7 @@ def main():
         "route": "cuda",
         "source": "d2slam_tpu_torch/csrc/stereo_bm.cu",
         "replaces": "d2slam_tpu/ops/stereo_bm_pallas.py:35",
-        "launches": depth["bm_launches"],
+        "launches": depth["bm_launches"] + sum(replay["bm_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in bm_rows.values()),
         "ms": frame["ms"],
         "plain_ms": frame["plain_ms"],

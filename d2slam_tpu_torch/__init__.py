@@ -21,5 +21,9 @@ tracker's multi-view path.
 The single-robot system is covered too (``runtime/system.py``): NetVLAD
 retrieval fused into the extraction, loop detection with PnP
 verification, PCM outlier rejection and pose-graph optimisation (dense
-LM or matrix-free PCG, ``pgo/``).
+LM or matrix-free PCG, ``pgo/``), with RGB-D input, dataset replay
+(``runtime/dataset_vio.py``), the two-thread runtime and the threaded
+quadcam depth replay (``runtime/depth_replay.py``). The estimator takes
+inverse-depth or world-position (``pos3d``) landmarks, LM or dogleg
+steps, and estimates extrinsics and the camera time offset online.
 """

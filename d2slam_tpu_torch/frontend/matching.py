@@ -82,3 +82,14 @@ def match_stereo_epipolar(desc_l, desc_r, pts_l, pts_r, valid_l, valid_r,
     mask = (valid_l[:, None] & valid_r[None, :]
             & (dy < band_px) & (disp >= 0.0) & (disp <= max_disparity))
     return _ratio_match(sim, mask, valid_l, ratio, NEG / 2, True)
+
+
+def retrieval_topk(query, database, db_valid, k: int):
+    """Inner-product retrieval over the keyframe database — the FAISS
+    IndexFlatIP equivalent as one GEMM + top-k (reference
+    queryIndexFromDatabase, loop_detector.cpp:300-360). query [Q, D],
+    database [N, D], db_valid [N] bool; returns (scores [Q, k],
+    idx [Q, k]) on the inputs' device."""
+    sim = query @ database.T
+    sim = torch.where(db_valid[None, :], sim, torch.full_like(sim, NEG))
+    return torch.topk(sim, k, dim=1)

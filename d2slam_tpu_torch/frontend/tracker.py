@@ -28,7 +28,10 @@ resolver hands the outputs over to the caller's current stream.
 
 Images come in as float [0, 1] or ``uint8``; they upload as ``uint8``.
 
-The RGB-D path and the learned matcher are not ported yet (ROADMAP.md).
+RGB-D (``process_rgbd``, reference PINHOLE_DEPTH): one view and an
+aligned depth image; each keypoint carries the depth sampled there, as
+a distance along its ray. The learned matcher is not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -66,6 +69,10 @@ class TrackerConfig:
     stereo_ratio: float = 0.8
     use_lk: bool = True
     lk_levels: int = 3
+    # RGB-D (reference PINHOLE_DEPTH): accepted measured-depth range
+    # when sampling the aligned depth image at keypoints
+    depth_min: float = 0.3
+    depth_max: float = 10.0
 
 
 def _img_f32(img: np.ndarray) -> np.ndarray:
@@ -479,12 +486,20 @@ class FeatureTracker:
         ring = [(v, (v + 1) % V) for v in range(V)]
         return self.process_multiview(stamp, frame_id, imgs, ring)
 
-    def process_rgbd(self, stamp: float, frame_id: int, img, depth):
-        raise NotImplementedError(
-            "the RGB-D path (reference PINHOLE_DEPTH) is not ported yet")
+    def process_rgbd(self, stamp: float, frame_id: int, img: np.ndarray,
+                     depth: np.ndarray) -> Optional[FrontendFrame]:
+        """Mono + aligned depth image (reference PINHOLE_DEPTH camera
+        config: each keypoint carries its measured depth and the
+        estimator adds depth residuals). ``depth`` is metric z along the
+        optical axis (as a depth camera gives it), at the resolution of
+        ``img``; each keypoint's sample becomes its distance along the
+        keypoint's ray. Samples outside [depth_min, depth_max] leave the
+        landmark vision-only."""
+        return self.process_multiview(stamp, frame_id, [img], [], depth_imgs=[depth])
 
     def process_multiview(self, stamp: float, frame_id: int,
-                          imgs: List[np.ndarray], adjacency
+                          imgs: List[np.ndarray], adjacency,
+                          depth_imgs: Optional[List[np.ndarray]] = None
                           ) -> Optional[FrontendFrame]:
         """General N-view tracking with cross-view landmark unification.
 
@@ -506,9 +521,11 @@ class FeatureTracker:
                     outs, kpts, valid = self.extract(im[None], aux=False)
                     per_view.append((kpts[0], outs.desc[0], valid[0]))
         with self.perf.stage("host"):
-            return self._associate_multiview(stamp, frame_id, imgs, per_view, adjacency)
+            return self._associate_multiview(stamp, frame_id, imgs, per_view, adjacency,
+                                             depth_imgs)
 
-    def _associate_multiview(self, stamp, frame_id, imgs, per_view, adjacency):
+    def _associate_multiview(self, stamp, frame_id, imgs, per_view, adjacency,
+                             depth_imgs=None):
         V = len(imgs)
         views = []
         moves_all: List[float] = []
@@ -590,8 +607,22 @@ class FeatureTracker:
                 views[v]["ids"][sel], views[v]["prev_ids"], views[v]["prev_pts"])
             if found.any():  # ONE batched lift for all carried features
                 vel[found] = (rays[found] - self._lift(v, prev_pt[found])) / self.dt
+            dep = None
+            if depth_imgs is not None and depth_imgs[v] is not None:
+                dimg = np.asarray(depth_imgs[v])
+                H, W = dimg.shape[:2]
+                px = np.clip(np.round(views[v]["kpts"][sel]).astype(int), 0, [W - 1, H - 1])
+                d = dimg[px[:, 1], px[:, 0]].astype(np.float64)
+                ok_d = (d > self.cfg.depth_min) & (d < self.cfg.depth_max)
+                # the image holds z along the optical axis; the estimator
+                # wants the distance along the unit ray (its inverse
+                # depth and depth residual are distances): z / ray_z.
+                # The JAX package attaches z itself (ROADMAP.md)
+                ray_z = np.maximum(rays[:, 2], 1e-6)
+                dep = np.where(ok_d, d / ray_z, 0.0)  # <= 0: no measurement
             obs.append(CameraObservations(
                 cam_id=v, landmark_ids=views[v]["ids"][sel], rays=rays, ray_vels=vel,
+                depths=dep,
             ))
         return FrontendFrame(stamp=stamp, frame_id=frame_id, is_keyframe=True,
                              observations=obs)

@@ -50,11 +50,33 @@ class IMUBuffer:
         """True once samples at/after time t have arrived."""
         return self._n > 0 and self.t_last >= t
 
+    def search_closest(self, t: float) -> int:
+        """Index of the sample closest in time to t (reference searchClosest)."""
+        idx = int(np.searchsorted(self._t[: self._n], t))
+        if idx == 0:
+            return 0
+        if idx >= self._n:
+            return self._n - 1
+        before, after = self._t[idx - 1], self._t[idx]
+        return idx - 1 if (t - before) <= (after - t) else idx
+
     def mean_acc(self) -> np.ndarray:
         return self._acc[: self._n].mean(axis=0)
 
     def mean_gyro(self) -> np.ndarray:
         return self._gyr[: self._n].mean(axis=0)
+
+    def samples_between(
+        self, t0: float, t1: float
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Raw samples with t0 < t <= t1 as (ts, accs, gyrs) — the
+        payload of the keyframe wire packet's IMU block (reference
+        VisualImageDescArray imu_buf, d2frontend_types.h:85-527)."""
+        ts = self._t[: self._n]
+        i0 = int(np.searchsorted(ts, t0, side="right"))
+        i1 = int(np.searchsorted(ts, t1, side="right"))
+        return (ts[i0:i1].copy(), self._acc[i0:i1].copy(),
+                self._gyr[i0:i1].copy())
 
     def period(
         self, t0: float, t1: float, pad_to: int

@@ -20,9 +20,9 @@ the pose-graph solve runs on one worker thread and its own CUDA stream.
 
 Not ported yet, and raising ``NotImplementedError``: the multi-robot
 modes (``estimation_mode`` "distributed" / "server", a ``transport``,
-``enable_dpgo``: the comm and multi-robot slices), the learned matcher
-(``enable_superglue_local`` / ``_remote``: the SuperGlue slice) and
-``input_rgbd`` (the tracker's RGB-D path). Dropped as TPU placement
+``enable_dpgo``: the comm and multi-robot slices) and the learned
+matcher (``enable_superglue_local`` / ``_remote``: the SuperGlue slice).
+Dropped as TPU placement
 workarounds with no counterpart on a local card: ``host_glue_on_cpu`` /
 ``default_to_cpu`` and the ``PackedAccelFn`` wrappers of the extraction,
 NetVLAD and PGO calls.
@@ -285,8 +285,14 @@ class D2SLAMSystem:
         ff = self.tracker.process_quadcam(t, self._frame_id, imgs)
         return self._after_tracking(ff, list(imgs))
 
-    def input_rgbd(self, t: float, img: np.ndarray, depth: np.ndarray):
-        _not_ported("input_rgbd", "the tracker's RGB-D path")
+    def input_rgbd(self, t: float, img: np.ndarray, depth: np.ndarray
+                   ) -> Optional[Odometry]:
+        """Process one mono image + aligned metric depth image (the
+        reference's PINHOLE_DEPTH configuration, e.g. a RealSense D435).
+        Keypoints inside the accepted depth range carry a measured depth
+        that the estimator turns into depth residuals."""
+        ff = self.tracker.process_rgbd(t, self._frame_id, img, depth)
+        return self._after_tracking(ff, [img])
 
     def _after_tracking(self, ff: Optional[FrontendFrame], imgs) -> Optional[Odometry]:
         self._frame_id += 1

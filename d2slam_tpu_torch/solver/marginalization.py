@@ -5,8 +5,9 @@ d2vins/src/estimator/marginalization/marginalization.cpp:173-254 and
 filterResiduals:78-118):
 
 * only residuals touching removed frames enter the marginalization;
-* landmarks those rows touch are Schur-eliminated first (diagonal),
-  then the removed frames' 15-dim blocks (masked dense Schur step);
+* landmarks those rows touch are Schur-eliminated first (diagonal, or
+  3x3 blocks for pos3d landmarks), then the removed frames' 15-dim
+  blocks (masked dense Schur step);
 * the (H, g) result becomes prior rows J, r through an eigenvalue
   square root (rows below ``eig_eps`` are masked out);
 * FEJ: kept params carried by the old prior linearize at its stored
@@ -82,11 +83,19 @@ def marginalize(
         landmark_param=landmark_param,
     )
 
-    # --- eliminate touched landmarks (diagonal Schur) ----------------------
-    Hdl = embed_cols(n.Hpl, compact_cols(layout, dev), D)  # [L, D]
-    hll_safe = torch.where(n.hll > 0, n.hll, torch.ones_like(n.hll))
-    H1 = n.H - (Hdl / hll_safe[:, None]).T @ Hdl
-    g1 = n.g - Hdl.T @ (n.gl / hll_safe)
+    # --- eliminate touched landmarks (diagonal or 3x3 block Schur) ---------
+    Hdl = embed_cols(n.Hpl, compact_cols(layout, dev), D)  # [L, D] / [L, 3, D]
+    if landmark_param == "pos3d":
+        eye3 = torch.eye(3, dtype=dtype, device=dev)
+        used = torch.diagonal(n.hll, dim1=1, dim2=2).sum(-1) > 0
+        safe = n.hll + (~used).to(dtype)[:, None, None] * eye3 + 1e-10 * eye3
+        inv3 = torch.linalg.inv(safe)
+        H1 = n.H - torch.einsum("lid,lij,lje->de", Hdl, inv3, Hdl)
+        g1 = n.g - torch.einsum("lid,lij,lj->d", Hdl, inv3, n.gl)
+    else:
+        hll_safe = torch.where(n.hll > 0, n.hll, torch.ones_like(n.hll))
+        H1 = n.H - (Hdl / hll_safe[:, None]).T @ Hdl
+        g1 = n.g - Hdl.T @ (n.gl / hll_safe)
 
     # --- eliminate removed frame dims (masked dense Schur) -----------------
     m_r = _frame_col_mask(layout, remove_frames, dtype)

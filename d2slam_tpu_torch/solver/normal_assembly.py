@@ -13,6 +13,9 @@ as forming H = rows^T rows over dense rows, without materializing the
   into the global interleaved [D, D] layout by index (``compact_cols``).
 * Landmark couplings (hll, gl, Hpl) are segment sums over the landmark
   slot (``index_add_``); Hpl stays in the compact G layout.
+* ``landmark_param="pos3d"`` (``build_proj_normal_pos3d``): every
+  observation is a residual of (pose_j, ext_j, world point), compact
+  blocks (pose_j 6 | ext_j 6 | td 1) and 3x3 landmark blocks.
 
 Reference semantics: Ceres CRS + Schur ordering
 (d2vins/src/estimator/marginalization/marginalization.cpp:17-76);
@@ -24,15 +27,15 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-from torch.func import jacrev, vmap
+from torch.func import vmap
 
-from d2slam_tpu_torch.geometry.lie import pose_boxplus
 from d2slam_tpu_torch.solver.layout import VIOLayout
 from d2slam_tpu_torch.solver.state import ImuMeas, PriorBlock, ProjMeas, VIOState
 from d2slam_tpu_torch.solver.vio_assembly import (
     RowBlock,
     _huber_weight,
-    _proj_residual_unified,
+    _pos3d_linearize_one,
+    _proj_linearize_one,
     _tangent_base,
     build_imu_rows,
     build_prior_rows,
@@ -40,9 +43,11 @@ from d2slam_tpu_torch.solver.vio_assembly import (
 
 
 class Normal(NamedTuple):
-    """Normal equations of the window, inverse-depth landmarks kept
-    separate: H [D, D]; g [D]; cost []; hll [L]; gl [L]; Hpl [L, G] in
-    the compact pose space (see ``compact_cols``)."""
+    """Normal equations of the window, landmarks kept separate: H
+    [D, D]; g [D]; cost []; and in the compact pose space (see
+    ``compact_cols``) for inverse-depth landmarks hll [L], gl [L],
+    Hpl [L, G], for pos3d landmarks hll [L, 3, 3], gl [L, 3],
+    Hpl [L, 3, G]."""
 
     H: torch.Tensor
     g: torch.Tensor
@@ -69,28 +74,6 @@ def embed_cols(x, cols, D):
     return out
 
 
-def _proj_linearize_one(pose_i, pose_j, ext_i, ext_j, inv_dep, td, m):
-    def f(d_pi, d_pj, d_ei, d_ej, d_l, d_td):
-        r = _proj_residual_unified(
-            pose_boxplus(pose_i, d_pi),
-            pose_boxplus(pose_j, d_pj),
-            pose_boxplus(ext_i, d_ei),
-            pose_boxplus(ext_j, d_ej),
-            inv_dep + d_l[0],
-            td + d_td[0],
-            m,
-        )
-        return r, r
-
-    z6 = pose_i.new_zeros(6)
-    z1 = pose_i.new_zeros(1)
-    (J_pi, J_pj, J_ei, J_ej, J_l, J_td), r = jacrev(
-        f, argnums=(0, 1, 2, 3, 4, 5), has_aux=True
-    )(z6, z6, z6, z6, z1, z1)
-    Jm = torch.cat([J_pi, J_pj, J_ei, J_ej, J_td], dim=1)  # [3, 25]
-    return r, Jm, J_l[:, 0]
-
-
 def build_proj_normal(
     layout: VIOLayout,
     state: VIOState,
@@ -101,7 +84,7 @@ def build_proj_normal(
 ) -> Normal:
     """Projection factors' contribution to the normal equations."""
     dtype = state.poses.dtype
-    W, C, L, D = layout.W, layout.C, layout.L, layout.D_pad
+    W, C, L = layout.W, layout.C, layout.L
     G = 6 * W + 6 * C + 1
     fi, fj, ci, cj, lm = (meas.frame_i, meas.frame_j,
                           meas.cam_i, meas.cam_j, meas.lm)
@@ -133,26 +116,15 @@ def build_proj_normal(
     r_w = r * row_w                     # [M, 3]
     Jl_w = Jl * row_w                   # [M, 3]
 
-    # compact [M, 3, G] rows: each block lands at its slot's columns
-    M_ = Jm.shape[0]
     ar6 = torch.arange(6, device=fi.device)
     col = torch.cat([
         (6 * fi)[:, None] + ar6,
         (6 * fj)[:, None] + ar6,
         (6 * W + 6 * ci)[:, None] + ar6,
         (6 * W + 6 * cj)[:, None] + ar6,
-        torch.full((M_, 1), G - 1, dtype=fi.dtype, device=fi.device),
+        torch.full((fi.shape[0], 1), G - 1, dtype=fi.dtype, device=fi.device),
     ], dim=1)  # [M, 25]
-    J79m = torch.zeros((M_, 3, G), dtype=dtype, device=fi.device)
-    J79m.scatter_add_(2, col[:, None, :].expand(M_, 3, 25), Jm_w)
-    J79 = J79m.reshape(M_ * 3, G)
-
-    H79 = J79.T @ J79
-    g79 = J79.T @ r_w.reshape(M_ * 3)
-    cols = compact_cols(layout, fi.device)
-    H = torch.zeros((D, D), dtype=dtype, device=fi.device)
-    H[cols[:, None], cols[None, :]] = H79
-    g = embed_cols(g79, cols, D)
+    H, g, J79m = _compact_normal(layout, Jm_w, r_w, col)
 
     # landmark couplings: contract the 3 residual rows per measurement
     # first, then segment-sum by landmark slot
@@ -161,6 +133,79 @@ def build_proj_normal(
     gl = r.new_zeros(L).index_add_(0, lm, torch.sum(Jl_w * r_w, dim=-1))
     Hpl = r.new_zeros((L, G)).index_add_(0, lm, hpvec)
     return Normal(H=H, g=g, hll=hll, gl=gl, Hpl=Hpl, cost=cost)
+
+
+def _compact_normal(layout: VIOLayout, Jm_w, r_w, col):
+    """Scatter weighted compact blocks Jm_w [M, 3, k] at the compact
+    columns ``col`` [M, k] into [M, 3, G] rows; returns the global
+    (H [D, D], g [D]) and the compact rows."""
+    M_, _, k = Jm_w.shape
+    G = 6 * layout.W + 6 * layout.C + 1
+    D, dev = layout.D_pad, Jm_w.device
+    J79m = torch.zeros((M_, 3, G), dtype=Jm_w.dtype, device=dev)
+    J79m.scatter_add_(2, col[:, None, :].expand(M_, 3, k), Jm_w)
+    J79 = J79m.reshape(M_ * 3, G)
+    H79 = J79.T @ J79
+    g79 = J79.T @ r_w.reshape(M_ * 3)
+    cols = compact_cols(layout, dev)
+    H = torch.zeros((D, D), dtype=Jm_w.dtype, device=dev)
+    H[cols[:, None], cols[None, :]] = H79
+    return H, embed_cols(g79, cols, D), J79m
+
+
+def build_proj_normal_pos3d(
+    layout: VIOLayout,
+    state: VIOState,
+    meas: ProjMeas,
+    proj_sqrt_info: float,
+    dep_sqrt_info: float,
+    huber_delta: float,
+) -> Normal:
+    """pos3d variant (reference landmark_param LM_POS,
+    d2vins_params.hpp:70-73): each observation is an independent
+    residual of (pose_j, ext_j, lm_pos); compact blocks are
+    (pose_j 6 | ext_j 6 | td 1) and the landmark column is a 3-block."""
+    dtype = state.poses.dtype
+    W, C, L = layout.W, layout.C, layout.L
+    G = 6 * W + 6 * C + 1
+    fj, cj, lm = meas.frame_j, meas.cam_j, meas.lm
+    m_data = {
+        "ray_j": meas.ray_j, "vel_j": meas.vel_j, "td_j": meas.td_j,
+        "dep_j": meas.dep_j, "tb": vmap(_tangent_base)(meas.ray_j),
+    }
+    r, Jm, Jl = vmap(_pos3d_linearize_one, in_dims=(0, 0, 0, None, 0))(
+        state.poses[fj], state.ext[cj], state.lm_pos[lm], state.td, m_data)
+
+    valid = meas.valid & state.lm_valid[lm] & state.frame_valid[fj]
+    validf = valid.to(dtype)
+    has_dep = meas.has_dep.to(dtype)
+    w2, w3 = proj_sqrt_info, dep_sqrt_info
+    sq = torch.sum((w2 * r[:, :2]) ** 2, dim=-1)
+    hw, rho = _huber_weight(sq, huber_delta)
+    row_w = torch.stack([hw * w2, hw * w2, w3 * has_dep], dim=-1) * validf[:, None]
+    dep_cost = (w3 * r[:, 2]) ** 2 * has_dep
+    cost = torch.sum((0.5 * rho + 0.5 * dep_cost) * validf)
+
+    Jm_w = Jm * row_w[:, :, None]       # [M, 3, 13]
+    r_w = r * row_w                     # [M, 3]
+    Jl_w = Jl * row_w[:, :, None]       # [M, 3, 3] (rows x lm dims)
+
+    ar6 = torch.arange(6, device=fj.device)
+    col = torch.cat([
+        (6 * fj)[:, None] + ar6,
+        (6 * W + 6 * cj)[:, None] + ar6,
+        torch.full((fj.shape[0], 1), G - 1, dtype=fj.dtype, device=fj.device),
+    ], dim=1)  # [M, 13]
+    H, g, J79m = _compact_normal(layout, Jm_w, r_w, col)
+
+    M_ = fj.shape[0]
+    hll = r.new_zeros((L, 9)).index_add_(
+        0, lm, torch.einsum("mri,mrj->mij", Jl_w, Jl_w).reshape(M_, 9))
+    gl = r.new_zeros((L, 3)).index_add_(0, lm, torch.einsum("mri,mr->mi", Jl_w, r_w))
+    Hpl = r.new_zeros((L, 3 * G)).index_add_(
+        0, lm, torch.einsum("mri,mrg->mig", Jl_w, J79m).reshape(M_, 3 * G))
+    return Normal(H=H, g=g, hll=hll.reshape(L, 3, 3), gl=gl,
+                  Hpl=Hpl.reshape(L, 3, G), cost=cost)
 
 
 def fold_rows(n: Normal, rb: RowBlock) -> Normal:
@@ -186,11 +231,9 @@ def build_window_normal(
     landmark_param: str = "inv_dep",
 ) -> Normal:
     """Full window: projection + IMU + prior normal equations."""
-    if landmark_param != "inv_dep":
-        raise NotImplementedError(
-            "landmark_param='pos3d' is not ported yet (see ROADMAP.md)")
-    n = build_proj_normal(layout, state, proj, proj_sqrt_info,
-                          dep_sqrt_info, huber_delta)
+    build = (build_proj_normal_pos3d if landmark_param == "pos3d"
+             else build_proj_normal)
+    n = build(layout, state, proj, proj_sqrt_info, dep_sqrt_info, huber_delta)
     n = fold_rows(n, build_imu_rows(layout, state, imu, gravity))
     if prior is not None:
         n = fold_rows(n, build_prior_rows(layout, state, prior))

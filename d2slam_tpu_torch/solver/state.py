@@ -41,6 +41,9 @@ class VIOState(NamedTuple):
     inv_dep: torch.Tensor    # [L] inverse depth per landmark slot
     frame_valid: torch.Tensor  # [W] bool
     lm_valid: torch.Tensor     # [L] bool
+    # world-position landmarks, used when landmark_param="pos3d"
+    # (reference d2vins_params.hpp:70-73)
+    lm_pos: torch.Tensor = None  # [L, 3]
 
     @staticmethod
     def zeros(layout: VIOLayout, dtype=torch.float32, device=None) -> "VIOState":
@@ -53,6 +56,7 @@ class VIOState(NamedTuple):
             inv_dep=torch.full((layout.L,), 0.2, dtype=dtype, device=device),
             frame_valid=torch.zeros((layout.W,), dtype=torch.bool, device=device),
             lm_valid=torch.zeros((layout.L,), dtype=torch.bool, device=device),
+            lm_pos=torch.zeros((layout.L, 3), dtype=dtype, device=device),
         )
 
 

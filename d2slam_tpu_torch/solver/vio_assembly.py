@@ -1,8 +1,11 @@
-"""Per-factor linearization helpers and the landmark-free row blocks.
+"""Per-factor linearization helpers and dense row blocks.
 
-Counterpart of the parts of ``d2slam_tpu/solver/vio_assembly.py`` that
-the normal-equation assembly uses: the unified projection residual,
-the Huber weighting, the IMU rows and the prior rows. Jacobians come
+Counterpart of ``d2slam_tpu/solver/vio_assembly.py``: the unified
+projection residual and the pos3d one, the Huber weighting, the IMU
+rows and the prior rows that the normal-equation assembly folds in, and
+the dense projection rows (``build_proj_rows``, ``build_proj_rows_pos3d``,
+``assemble_full_rows``) that serve as the independent check of both
+normal assemblies. Jacobians come
 from ``torch.func.jacrev`` of each factor under ``torch.func.vmap``, as
 the JAX package uses ``jax.jacrev`` under ``vmap``. Where the JAX code
 places blocks with one-hot matmuls (a TPU workaround for serializing
@@ -24,18 +27,24 @@ from d2slam_tpu_torch.geometry.lie import (
     quat_rotate,
 )
 from d2slam_tpu_torch.solver.layout import VIOLayout
-from d2slam_tpu_torch.solver.state import ImuMeas, PriorBlock, VIOState
+from d2slam_tpu_torch.solver.state import ImuMeas, PriorBlock, ProjMeas, VIOState
 
 
 class RowBlock(NamedTuple):
-    """Weighted rows of a landmark-free factor group.
+    """Weighted rows of the linearized system.
 
-    J: [N, D_pad]; r: [N]; cost: [N] robust cost contribution.
+    J: [N, D_pad]; r: [N]; cost: [N] robust cost contribution. Rows of
+    projection factors also carry their landmark column: Jl [N] (inverse
+    depth) or [N, 3] (pos3d), lm [N] landmark slot, lm_used [N] bool;
+    landmark-free groups (IMU, prior) leave them None.
     """
 
     J: torch.Tensor
     r: torch.Tensor
     cost: torch.Tensor
+    Jl: torch.Tensor = None
+    lm: torch.Tensor = None
+    lm_used: torch.Tensor = None
 
 
 def _huber_weight(sq_norm, delta):
@@ -80,6 +89,173 @@ def _tangent_base(ray):
     b1 = b1 / torch.clamp_min(torch.linalg.norm(b1), 1e-12)
     b2 = torch.linalg.cross(a, b1, dim=-1)
     return torch.stack([b1, b2])
+
+
+def _proj_linearize_one(pose_i, pose_j, ext_i, ext_j, inv_dep, td, m):
+    def f(d_pi, d_pj, d_ei, d_ej, d_l, d_td):
+        r = _proj_residual_unified(
+            pose_boxplus(pose_i, d_pi),
+            pose_boxplus(pose_j, d_pj),
+            pose_boxplus(ext_i, d_ei),
+            pose_boxplus(ext_j, d_ej),
+            inv_dep + d_l[0],
+            td + d_td[0],
+            m,
+        )
+        return r, r
+
+    z6 = pose_i.new_zeros(6)
+    z1 = pose_i.new_zeros(1)
+    (J_pi, J_pj, J_ei, J_ej, J_l, J_td), r = jacrev(
+        f, argnums=(0, 1, 2, 3, 4, 5), has_aux=True
+    )(z6, z6, z6, z6, z1, z1)
+    Jm = torch.cat([J_pi, J_pj, J_ei, J_ej, J_td], dim=1)  # [3, 25]
+    return r, Jm, J_l[:, 0]
+
+
+def _pos3d_residual(pose_j, ext_j, p, td, m):
+    """3-row residual [tangent(2), depth(1)] of a world point ``p``
+    seen from one camera (reference reprojection3d.h)."""
+    pts_j_td = m["ray_j"] - (td - m["td_j"]) * m["vel_j"]
+    pts_imu_j = quat_rotate(quat_conj(quat_normalize(pose_j[3:])), p - pose_j[:3])
+    pts_cam_j = quat_rotate(quat_conj(quat_normalize(ext_j[3:])), pts_imu_j - ext_j[:3])
+    norm_j = torch.linalg.norm(pts_cam_j)
+    pred = pts_cam_j / torch.clamp_min(norm_j, 1e-12)
+    obs = pts_j_td / torch.clamp_min(torch.linalg.norm(pts_j_td), 1e-12)
+    r2 = m["tb"] @ (pred - obs)
+    return torch.cat([r2, (norm_j - m["dep_j"])[None]])
+
+
+def _pos3d_linearize_one(pose_j, ext_j, pw, td, m):
+    def f(d_pj, d_ej, d_l, d_td):
+        r = _pos3d_residual(pose_boxplus(pose_j, d_pj),
+                            pose_boxplus(ext_j, d_ej), pw + d_l,
+                            td + d_td[0], m)
+        return r, r
+
+    z6 = pose_j.new_zeros(6)
+    (J_pj, J_ej, J_l, J_td), r = jacrev(
+        f, argnums=(0, 1, 2, 3), has_aux=True
+    )(z6, z6, pose_j.new_zeros(3), pose_j.new_zeros(1))
+    return r, torch.cat([J_pj, J_ej, J_td], dim=1), J_l  # [3], [3, 13], [3, 3]
+
+
+def _proj_row_weights(r, valid, has_dep, proj_sqrt_info, dep_sqrt_info,
+                      huber_delta):
+    """Per-row weights [M, 3] and per-row costs [M, 3] of projection
+    residuals r [M, 3] (Huber on the weighted 2-dof part)."""
+    dtype = r.dtype
+    validf = valid.to(dtype)[:, None]
+    has_dep = has_dep.to(dtype)
+    w2, w3 = proj_sqrt_info, dep_sqrt_info
+    hw, rho = _huber_weight(torch.sum((w2 * r[:, :2]) ** 2, dim=-1), huber_delta)
+    row_w = torch.stack([hw * w2, hw * w2, w3 * has_dep], dim=-1) * validf
+    cost3 = torch.stack([0.5 * rho, torch.zeros_like(rho),
+                         0.5 * (w3 * r[:, 2]) ** 2 * has_dep], dim=-1) * validf
+    return row_w, cost3
+
+
+def _scatter_rows(Jm, cols, D):
+    """Blocks Jm [M, R, k] at global columns ``cols`` [M, k] into dense
+    rows [M, R, D] (coincident columns sum)."""
+    M_, R, k = Jm.shape
+    out = torch.zeros((M_, R, D), dtype=Jm.dtype, device=Jm.device)
+    return out.scatter_add_(2, cols[:, None, :].expand(M_, R, k), Jm)
+
+
+def build_proj_rows(layout: VIOLayout, state: VIOState, meas: ProjMeas,
+                    proj_sqrt_info: float, dep_sqrt_info: float,
+                    huber_delta: float) -> RowBlock:
+    """All projection measurements (inverse-depth landmarks) as dense
+    weighted rows [3M, D_pad] with their landmark column."""
+    D, W = layout.D_pad, layout.W
+    fi, fj, ci, cj, lm = (meas.frame_i, meas.frame_j,
+                          meas.cam_i, meas.cam_j, meas.lm)
+    m_data = {
+        "ray_i": meas.ray_i, "ray_j": meas.ray_j,
+        "vel_i": meas.vel_i, "vel_j": meas.vel_j,
+        "td_i": meas.td_i, "td_j": meas.td_j,
+        "dep_j": meas.dep_j, "tb": vmap(_tangent_base)(meas.ray_j),
+    }
+    r, Jm, Jl = vmap(_proj_linearize_one, in_dims=(0, 0, 0, 0, 0, None, 0))(
+        state.poses[fi], state.poses[fj], state.ext[ci], state.ext[cj],
+        state.inv_dep[lm], state.td, m_data)
+    valid = (meas.valid & state.lm_valid[lm]
+             & state.frame_valid[fi] & state.frame_valid[fj])
+    row_w, cost3 = _proj_row_weights(r, valid, meas.has_dep, proj_sqrt_info,
+                                     dep_sqrt_info, huber_delta)
+    ar6 = torch.arange(6, device=fi.device)
+    ext0 = 15 * W
+    cols = torch.cat([
+        (15 * fi)[:, None] + ar6, (15 * fj)[:, None] + ar6,
+        (ext0 + 6 * ci)[:, None] + ar6, (ext0 + 6 * cj)[:, None] + ar6,
+        torch.full_like(fi[:, None], layout.td_col),
+    ], dim=1)  # [M, 25]
+    N = fi.shape[0] * 3
+    return RowBlock(
+        J=_scatter_rows(Jm * row_w[:, :, None], cols, D).reshape(N, D),
+        r=(r * row_w).reshape(N),
+        cost=cost3.reshape(N),
+        Jl=(Jl * row_w).reshape(N),
+        lm=torch.repeat_interleave(lm, 3),
+        lm_used=torch.repeat_interleave(valid, 3),
+    )
+
+
+def build_proj_rows_pos3d(layout: VIOLayout, state: VIOState, meas: ProjMeas,
+                          proj_sqrt_info: float, dep_sqrt_info: float,
+                          huber_delta: float) -> RowBlock:
+    """Projection rows for 3-dof world-position landmarks (reference
+    landmark_param LM_POS, factors/reprojection3d.h): each observation,
+    the anchor's included, is a residual of (pose_j, ext_j, lm_pos);
+    frame_i / ray_i are ignored. Jl is [N, 3]."""
+    D, W = layout.D_pad, layout.W
+    fj, cj, lm = meas.frame_j, meas.cam_j, meas.lm
+    m_data = {
+        "ray_j": meas.ray_j, "vel_j": meas.vel_j, "td_j": meas.td_j,
+        "dep_j": meas.dep_j, "tb": vmap(_tangent_base)(meas.ray_j),
+    }
+    r, Jm, Jl = vmap(_pos3d_linearize_one, in_dims=(0, 0, 0, None, 0))(
+        state.poses[fj], state.ext[cj], state.lm_pos[lm], state.td, m_data)
+    valid = meas.valid & state.lm_valid[lm] & state.frame_valid[fj]
+    row_w, cost3 = _proj_row_weights(r, valid, meas.has_dep, proj_sqrt_info,
+                                     dep_sqrt_info, huber_delta)
+    ar6 = torch.arange(6, device=fj.device)
+    cols = torch.cat([
+        (15 * fj)[:, None] + ar6, (15 * W + 6 * cj)[:, None] + ar6,
+        torch.full_like(fj[:, None], layout.td_col),
+    ], dim=1)  # [M, 13]
+    N = fj.shape[0] * 3
+    return RowBlock(
+        J=_scatter_rows(Jm * row_w[:, :, None], cols, D).reshape(N, D),
+        r=(r * row_w).reshape(N),
+        cost=cost3.reshape(N),
+        Jl=(Jl * row_w[:, :, None]).reshape(N, 3),
+        lm=torch.repeat_interleave(lm, 3),
+        lm_used=torch.repeat_interleave(valid, 3),
+    )
+
+
+def assemble_full_rows(blocks) -> RowBlock:
+    """Concatenate row blocks; landmark-free blocks get zero landmark
+    columns ([N], or [N, 3] when a block carries pos3d columns)."""
+    pos3d = any(b.Jl is not None and b.Jl.ndim == 2 for b in blocks)
+
+    def lm_cols(b):
+        n = b.r.shape[0]
+        if b.Jl is not None:
+            return b.Jl, b.lm, b.lm_used
+        shape = (n, 3) if pos3d else (n,)
+        return (b.r.new_zeros(shape),
+                torch.zeros(n, dtype=torch.long, device=b.r.device),
+                torch.zeros(n, dtype=torch.bool, device=b.r.device))
+
+    Jl, lm, used = zip(*(lm_cols(b) for b in blocks))
+    return RowBlock(
+        J=torch.cat([b.J for b in blocks]), r=torch.cat([b.r for b in blocks]),
+        cost=torch.cat([b.cost for b in blocks]),
+        Jl=torch.cat(Jl), lm=torch.cat(lm), lm_used=torch.cat(used),
+    )
 
 
 def place_cols(J, col0, D):

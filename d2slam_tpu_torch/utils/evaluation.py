@@ -2,9 +2,8 @@
 
 Counterpart of ``d2slam_tpu/utils/evaluation.py`` (the reference's
 evaluation notebooks, data_analysis/local_plot.py:217-280: relative and
-absolute RMSE against ground truth, as library functions). Host numpy.
-``retrieval_pr_aliasing`` waits for the port of the frontend trainer
-(ROADMAP.md).
+absolute RMSE against ground truth, as library functions). Host numpy,
+but for ``retrieval_pr_aliasing``, which runs NetVLAD on a device.
 """
 from __future__ import annotations
 
@@ -102,3 +101,91 @@ def read_trajectory_csv(path: str):
             stamps.append(vals[0])
             poses.append(vals[1:8])
     return np.asarray(stamps), np.asarray(poses)
+
+
+def retrieval_pr_aliasing(
+    nv_params,
+    n_places: int = 20,
+    n_alias: int = 12,
+    seed: int = 3,
+    hw=(120, 160),
+    thresholds=None,
+    device=None,
+):
+    """Precision/recall of NetVLAD place retrieval under perceptual
+    aliasing (the reference's retrieval gates,
+    d2frontend/src/loop_detector.cpp:254-330).
+
+    The database holds ``n_places`` distinct synthetic scenes. Queries
+    are (a) revisits of each database place (viewpoint + photometric
+    change) and (b) revisits of ``n_alias`` held-out scenes from the
+    same generator, which are not in the map: one of those retrieved
+    above threshold is a false positive, the failure that injects false
+    loops into PGO. ``nv_params`` is a NetVLAD parameter dict
+    (``frontend.netvlad.load_params``); the network and the warps run on
+    ``device`` (default ``cuda``).
+
+    Returns per-threshold precision/recall arrays and the operating
+    point values at the reference's 0.8 gate and at the best F1.
+    """
+    import torch
+
+    from d2slam_tpu_torch.frontend.netvlad import NetVLAD
+    from d2slam_tpu_torch.frontend.train_frontend import (
+        make_batch,
+        random_homography,
+        warp_image,
+    )
+    from d2slam_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    H, W = hw
+    rng = np.random.default_rng(seed)
+    base, _ = make_batch(rng, n_places, H, W)
+
+    def variant(img, strength):
+        Hm = random_homography(rng, H, W, max_angle=0.35 * strength,
+                               max_trans=0.15 * strength)
+        v = warp_image(torch.as_tensor(img, device=dev), Hm.astype(np.float32))
+        gain = rng.uniform(1 - 0.3 * strength, 1 + 0.3 * strength)
+        return np.clip(v.cpu().numpy() * gain, 0, 1).astype(np.float32)
+
+    held_out, _ = make_batch(rng, n_alias, H, W)
+    queries = [variant(base[i], strength=0.5) for i in range(n_places)]
+    queries += [variant(held_out[k], strength=0.5) for k in range(n_alias)]
+    # query k < n_places should retrieve place k; the rest should stay
+    # below threshold (their place is not in the map)
+    gt = np.concatenate([np.arange(n_places), -np.ones(n_alias, int)])
+
+    net = NetVLAD(nv_params, device=dev)
+    with torch.no_grad():
+        db = net(torch.as_tensor(base, device=dev)).cpu().numpy()
+        q = net(torch.as_tensor(np.stack(queries), device=dev)).cpu().numpy()
+    sims = q @ db.T                       # [n_q, n_places]
+    best = np.argmax(sims, axis=1)
+    best_sim = sims[np.arange(len(queries)), best]
+    correct = best == gt                  # held-out rows always False
+
+    if thresholds is None:
+        thresholds = np.linspace(0.5, 0.99, 25)
+    prec, rec = [], []
+    for th in thresholds:
+        fired = best_sim >= th
+        tp = int(np.sum(fired & correct))
+        prec.append(tp / max(int(fired.sum()), 1))
+        rec.append(tp / n_places)
+    prec, rec = np.asarray(prec), np.asarray(rec)
+    f1 = 2 * prec * rec / np.maximum(prec + rec, 1e-9)
+    k = int(np.argmax(f1))
+    return {
+        "thresholds": np.asarray(thresholds),
+        "precision": prec,
+        "recall": rec,
+        "precision_at_0p8": float(np.interp(0.8, thresholds, prec)),
+        "recall_at_0p8": float(np.interp(0.8, thresholds, rec)),
+        # self-calibrated operating point (the detector's auto_thres
+        # plays the same role at runtime): best-F1 threshold
+        "op_threshold": float(thresholds[k]),
+        "op_precision": float(prec[k]),
+        "op_recall": float(rec[k]),
+    }

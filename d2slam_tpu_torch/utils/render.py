@@ -83,6 +83,121 @@ def make_signatures(n: int, seed: int = 0) -> np.ndarray:
     return np.concatenate([amps, phases], axis=1)
 
 
+# ---------------------------------------------------------------------------
+# textured structured scenes: texture aliasing, perspective distortion
+# and lighting variation with exact ground truth
+# ---------------------------------------------------------------------------
+
+
+class TexturedRoom:
+    """A box room of textured planes (floor, ceiling, 4 walls), each
+    carrying a procedural mosaic texture sampled with bilinear
+    interpolation. Renders by per-pixel ray/plane intersection —
+    perspective-correct texture, directional lighting, optional
+    vignetting and gamma jitter. Pure numpy (host-side test data; the
+    compute path never renders); renders equal the JAX package's bit
+    for bit.
+
+    Plays the role the reference's TUM-VI / GRACO rosbags play in its
+    evaluation (data_analysis/local_plot.py): imagery with texture
+    aliasing, photometric variation and occlusion-like structure, with
+    exact pose ground truth.
+    """
+
+    def __init__(self, half: float = 12.0, height: float = 6.0,
+                 seed: int = 0, tex_res: int = 512, cell: float = 0.5):
+        rng = np.random.default_rng(seed)
+        h = half
+        z0, z1 = -1.0, height - 1.0
+        # (p0, n, u_axis, v_axis)  — n points INTO the room
+        self.planes = [
+            (np.array([0, 0, z0]), np.array([0, 0, 1.0]),
+             np.array([1.0, 0, 0]), np.array([0, 1.0, 0])),   # floor
+            (np.array([0, 0, z1]), np.array([0, 0, -1.0]),
+             np.array([1.0, 0, 0]), np.array([0, 1.0, 0])),   # ceiling
+            (np.array([h, 0, 0]), np.array([-1.0, 0, 0]),
+             np.array([0, 1.0, 0]), np.array([0, 0, 1.0])),
+            (np.array([-h, 0, 0]), np.array([1.0, 0, 0]),
+             np.array([0, 1.0, 0]), np.array([0, 0, 1.0])),
+            (np.array([0, h, 0]), np.array([0, -1.0, 0]),
+             np.array([1.0, 0, 0]), np.array([0, 0, 1.0])),
+            (np.array([0, -h, 0]), np.array([0, 1.0, 0]),
+             np.array([1.0, 0, 0]), np.array([0, 0, 1.0])),
+        ]
+        self.cell = cell
+        self.textures = []
+        for _ in self.planes:
+            # multi-scale mosaic: blocky value noise (strong corners
+            # for detectors) + fine grain (texture aliasing)
+            coarse = rng.uniform(0.1, 0.95, (tex_res // 16, tex_res // 16))
+            coarse = np.kron(coarse, np.ones((16, 16)))
+            mid = np.kron(rng.uniform(-0.15, 0.15,
+                                      (tex_res // 4, tex_res // 4)),
+                          np.ones((4, 4)))
+            fine = rng.uniform(-0.06, 0.06, (tex_res, tex_res))
+            tex = np.clip(coarse + mid + fine, 0.0, 1.0)
+            # one-texel box blur (separable): point-sampled hard texel
+            # edges alias under subpixel motion and jitter the
+            # detector/LK localization; real optics low-pass the scene
+            tex = (np.roll(tex, 1, 0) + tex + np.roll(tex, -1, 0)) / 3.0
+            tex = (np.roll(tex, 1, 1) + tex + np.roll(tex, -1, 1)) / 3.0
+            self.textures.append(tex.astype(np.float32))
+        self.tex_res = tex_res
+        self.light = rng.normal(size=3)
+        self.light[2] = -abs(self.light[2]) - 0.5
+        self.light /= np.linalg.norm(self.light)
+
+    def render(self, T_w_cam: np.ndarray, fx: float, fy: float,
+               cx: float, cy: float, H: int, W: int,
+               gain: float = 1.0, gamma: float = 1.0,
+               vignette: float = 0.0) -> np.ndarray:
+        """[H, W] float image in [0, 1] from camera pose T_w_cam [7]."""
+        R = np_lie.quat_to_rotmat(T_w_cam[3:])   # cam->world
+        o = T_w_cam[:3]
+        xs = (np.arange(W) - cx) / fx
+        ys = (np.arange(H) - cy) / fy
+        dx, dy = np.meshgrid(xs, ys)
+        d_cam = np.stack([dx, dy, np.ones_like(dx)], axis=-1)
+        d = d_cam.reshape(-1, 3) @ R.T                      # [P, 3] world
+        img = np.zeros(H * W, np.float32)
+        best_t = np.full(H * W, np.inf)
+        for (p0, n, ua, va), tex in zip(self.planes, self.textures):
+            dn = d @ n
+            with np.errstate(divide="ignore", invalid="ignore"):
+                t = ((p0 - o) @ n) / dn
+            ok = (dn < -1e-9) & (t > 0.05) & (t < best_t)
+            if not ok.any():
+                continue
+            hit = o + d[ok] * t[ok, None]
+            u = (hit - p0) @ ua / self.cell
+            v = (hit - p0) @ va / self.cell
+            # bilinear texture sampling: nearest-texel lookup makes
+            # edges jump by whole pixels under subpixel motion, which
+            # breaks LK's smooth-gradient assumption (real optics blur)
+            fu = (u * 8) % self.tex_res
+            fv = (v * 8) % self.tex_res
+            i0 = np.floor(fu).astype(np.int64) % self.tex_res
+            j0 = np.floor(fv).astype(np.int64) % self.tex_res
+            i1 = (i0 + 1) % self.tex_res
+            j1 = (j0 + 1) % self.tex_res
+            wu = (fu - np.floor(fu)).astype(np.float32)
+            wv = (fv - np.floor(fv)).astype(np.float32)
+            val = (tex[j0, i0] * (1 - wu) * (1 - wv)
+                   + tex[j0, i1] * wu * (1 - wv)
+                   + tex[j1, i0] * (1 - wu) * wv
+                   + tex[j1, i1] * wu * wv)
+            shade = 0.55 + 0.45 * max(0.0, float(-n @ self.light))
+            img[ok] = val * shade
+            best_t[ok] = t[ok]
+        img = img.reshape(H, W)
+        if vignette > 0:
+            yy, xx = np.mgrid[0:H, 0:W]
+            r2 = (((xx - cx) / (W / 2)) ** 2 + ((yy - cy) / (H / 2)) ** 2)
+            img = img * (1.0 - vignette * r2)
+        img = np.clip(img * gain, 0.0, 1.0) ** gamma
+        return img.astype(np.float32)
+
+
 def render_cylinder_wall(fisheye: KBParams, T_body_cam: np.ndarray, hw,
                          r_wall: float = 5.0, seed: int = 0,
                          return_points: bool = False):

@@ -469,7 +469,9 @@ class D2Estimator:
             "td_i": np.zeros(M), "td_j": np.zeros(M), "dep_j": np.zeros(M),
             "has_dep": np.zeros(M, bool), "valid": np.zeros(M, bool),
         }
+        pos3d = e.landmark_param == "pos3d"
         inv_dep = self._np(self.state.inv_dep).copy()
+        lm_pos = self._np(self.state.lm_pos).copy()
         lm_valid = np.zeros(layout.L, bool)
         self.lm_slot_of = {}
         m = 0
@@ -478,11 +480,17 @@ class D2Estimator:
                 break
             a = lm.anchor
             fi = slots[a.frame_id]
+            if pos3d and lm.position is None:
+                continue
             self.lm_slot_of[lm.lm_id] = slot
             lm_valid[slot] = True
             inv_dep[slot] = lm.inv_dep
-            # observations pair with the anchor
-            for o in lm.obs[1:]:
+            if pos3d:
+                lm_pos[slot] = lm.position
+            # inv_dep: observations pair with the anchor; pos3d: every
+            # observation, the anchor's included, is a single-frame
+            # residual of the world point (reference reprojection3d.h)
+            for o in (lm.obs if pos3d else lm.obs[1:]):
                 if o.frame_id not in slots or m >= M:
                     continue
                 pm["frame_i"][m] = fi
@@ -504,7 +512,8 @@ class D2Estimator:
                  np.dtype(bool): torch.bool}
         proj = ProjMeas(**{k: self._t(v, kinds[v.dtype]) for k, v in pm.items()})
         self.state = self.state._replace(
-            inv_dep=self._t(inv_dep), lm_valid=self._t(lm_valid, torch.bool),
+            inv_dep=self._t(inv_dep), lm_pos=self._t(lm_pos),
+            lm_valid=self._t(lm_valid, torch.bool),
         )
         return imu, proj
 
@@ -574,6 +583,7 @@ class D2Estimator:
         (reference d2vinsstate.cpp:557-592 syncFromState)."""
         e = self.cfg.estimator
         inv_dep = self._np(self.state.inv_dep)
+        lm_pos = self._np(self.state.lm_pos)
         cam_pose = self._cam_pose_of()
         lms, slots, fids, cids, rays = [], [], [], [], []
         for lid, slot in self.lm_slot_of.items():
@@ -585,7 +595,16 @@ class D2Estimator:
             fids.append(lm.anchor.frame_id)
             cids.append(lm.anchor.cam_id)
             rays.append(lm.anchor.ray)
-        if lms:
+        if lms and e.landmark_param == "pos3d":
+            T, ok = cam_pose.lookup(fids, np.asarray(cids))
+            pos = lm_pos[np.asarray(slots)].astype(np.float64)
+            inv_d = 1.0 / np.maximum(np.linalg.norm(pos - T[:, :3], axis=1), 1e-6)
+            for k, lm in enumerate(lms):
+                lm.position = pos[k]
+                lm.flag = ESTIMATED
+                if ok[k]:
+                    lm.inv_dep = float(inv_d[k])
+        elif lms:
             T, ok = cam_pose.lookup(fids, np.asarray(cids))
             invd = inv_dep[np.asarray(slots)]
             R = np_lie.quat_to_rotmat_batch(T[:, 3:])
@@ -664,15 +683,24 @@ class D2Estimator:
             vel=self._np(self.state.sb[w, :3]),
         )
 
-    def predict_odometry(self, t: Optional[float] = None) -> Optional[Odometry]:
-        """IMU-rate odometry: the newest solved state propagated through
-        the buffered IMU up to ``t`` (default: the latest IMU sample)
-        (reference d2estimator.cpp:57-72)."""
-        if not self.initialized:
+    def imu_propagated_odometry(self, t: float) -> Optional[Odometry]:
+        """The JAX package's name for ``predict_odometry(t, from_first_frame=True)``
+        (reference inputImu publishing path, d2estimator.cpp:57-72)."""
+        return self.predict_odometry(t, from_first_frame=True)
+
+    def predict_odometry(self, t: Optional[float] = None, *,
+                         from_first_frame: bool = False) -> Optional[Odometry]:
+        """IMU-rate odometry: the newest own frame's state propagated
+        through the buffered IMU up to ``t`` (default: the latest IMU
+        sample) (reference d2estimator.cpp:57-72). It answers once the
+        estimator is initialized, and at or before the frame's stamp
+        gives the frame's odometry; ``from_first_frame`` answers from
+        the first frame on and stamps the result ``t`` always."""
+        if not (self.frames if from_first_frame else self.initialized):
             return None
         w = self._last_self_slot()
         t_end = float(t) if t is not None else self.imubuf.t_last
-        if t_end <= self.frames[w].stamp:
+        if t_end <= self.frames[w].stamp and not from_first_frame:
             return self.latest_odometry()
         pose, vel = self._propagate(w, t_end)
         return Odometry(stamp=t_end, pose=self._np(pose), vel=self._np(vel))

@@ -216,7 +216,11 @@ def test_quadcam_vio_slice_matches_jax():
     assert abs(ate_port - ate_jax) < 0.03, (ate_port, ate_jax)
 
 
-def test_multiview_needs_extrinsics_and_rgbd_is_not_ported():
+def test_multiview_needs_extrinsics_and_rgbd_attaches_depths():
+    from d2slam_tpu.frontend.superpoint import SuperPointConfig as JSPConfig
+    from d2slam_tpu.frontend.tracker import FeatureTracker as JTracker
+    from d2slam_tpu.frontend.train_frontend import load_weights
+    from d2slam_tpu.geometry.cameras import PinholeParams as JPinhole
     from d2slam_tpu_torch.frontend.superpoint import SuperPointConfig, load_params
     from d2slam_tpu_torch.frontend.tracker import FeatureTracker
     from d2slam_tpu_torch.geometry.cameras import PinholeParams
@@ -227,8 +231,25 @@ def test_multiview_needs_extrinsics_and_rgbd_is_not_ported():
     img[20:40, 30:50] = 1.0
     with pytest.raises(ValueError):
         tt.process_multiview(0.0, 0, [img, img], [(0, 1)])
-    with pytest.raises(NotImplementedError):
-        tt.process_rgbd(0.0, 0, img, img)
+    # RGB-D: the depth image sampled at the keypoints as the JAX
+    # tracker samples it (the right half lies beyond depth_max); the
+    # port turns the image's z into the distance along each keypoint's
+    # ray (tests/test_torch_rgbd.py)
+    depth = np.full((64, 80), 2.5)
+    depth[:, 40:] = 50.0
+    rgbd = np.clip(img + 0.5 * (np.indices((64, 80)).sum(0) % 7 == 0), 0, 1).astype(np.float32)
+    rgbd[10:20, 50:70] = 1.0
+    jt = JTracker(load_weights(WEIGHTS), JSPConfig(max_keypoints=32),
+                  [JPinhole.make(FX, FX, 40, 32)], extrinsics=quadcam_extrinsics(1))
+    tr = FeatureTracker(load_params(WEIGHTS), SuperPointConfig(max_keypoints=32),
+                        [PinholeParams.make(FX, FX, 40, 32)], extrinsics=quadcam_extrinsics(1),
+                        device="cpu")
+    (co,) = tr.process_rgbd(0.0, 0, rgbd, depth).observations
+    (jco,) = jt.process_rgbd(0.0, 0, rgbd, depth).observations
+    np.testing.assert_array_equal(co.landmark_ids, np.asarray(jco.landmark_ids))
+    z = co.depths * co.rays[:, 2]
+    np.testing.assert_allclose(z, np.asarray(jco.depths), rtol=1e-12, atol=0)
+    assert np.isclose(z, 2.5).any() and (co.depths == 0.0).any()
     # views of different shapes are extracted one by one
     tt.ext = quadcam_extrinsics(2)
     ff = tt.process_multiview(0.0, 0, [img, img[:48]], [])

@@ -19,7 +19,7 @@ the hand-written stem kernel is on the path:
       the bf16 backbone (stem kernel) and the f32 backbone: asserts the
       keyframe count, ATE < 0.03 m and the median track length;
   (c) the main path at full width: 480x640, the default estimator and
-      SuperPoint configurations, 24 frames;
+      SuperPoint configurations, 16 frames;
   (d) quadcam depth at full width: 4 Kannala-Brandt fisheyes 480x640
       around a textured cylinder wall -> 4 virtual stereo pairs 240x320
       -> block-matching kernel (max_disp 64, block 9) -> coloured point
@@ -61,7 +61,8 @@ the hand-written stem kernel is on the path:
       package's golden textured scenarios at 240x320
       (tests/test_golden_textured.py: stereo ``D2SLAMSystem`` over 26
       frames, pin 0.18 m; the 4-view ring over 16 frames, pin 0.2 m)
-      with the tests' float32 backbone; then ``D2SLAMSystem.input_stereo``
+      with the tests' float32 backbone (the stereo one twice more with the
+      bf16 stem, printed with how far the two runs part); then ``D2SLAMSystem.input_stereo``
       at 480x640, bf16, with NetVLAD fused, loop detection and PGO over one lap
       and the revisit of its start; prints retrieval queries, loops
       verified and kept by PCM, the NetVLAD similarity of true revisits
@@ -84,12 +85,31 @@ the hand-written stem kernel is on the path:
       (d)'s rig with uint8 frames: serial against threaded ms per frame,
       the uint8 upload against the float32 one; asserts the threaded
       clouds equal the serial ones bit for bit, and two block-matching
-      launches per frame.
+      launches per frame;
+  (m) the two-robot swarm: SuperGlue alone at 300 x 300 keypoints, 256-d
+      (the shipped compact weights in weights/superglue_synth.npz and the
+      9-layer default from a scaled random init), the card's
+      log-assignment against the same module on the CPU within 1e-5 of its
+      scale and their matches, ms and kernel launches per call beside the
+      kNN ratio matcher; the JAX package's golden textured swarm
+      (tests/test_golden_textured.py::test_golden_textured_swarm: two
+      robots at 240x320 on a ``LocalBus``, NetVLAD, SuperGlue remote, 26
+      frames each) with the test's float32 backbone, held to its pins (>= 3
+      inter-robot loops, best >= 50 PnP inliers, joint RMSE < 0.35 m) on
+      the graph the JAX package's run reads (robot 1's; robot 0's is
+      printed), and
+      once more with the bf16 stem (printed); then two robots at 480x640
+      in that room, bf16 stem, NetVLAD fused, SuperGlue local and remote,
+      greedy broadcast, 20 frames each: asserts an inter-robot loop, an
+      alignment, robot 1 merged into robot 0's reference frame, the joint
+      PGO solved and one stem launch per frame per robot; prints SuperGlue
+      ms per local match and per loop candidate and each robot's
+      estimator, PGO, loop and per-frame ms.
 
 The native pipeline library and LK are built with the kernels in (a).
-The launch counts of (c), (d), (e), (f), (h), (j), (k) and (l) go into
-the ``kernels`` line: each count is set to 0 just before its path runs
-and read just after.
+The launch counts of (c), (d), (e), (f), (h), (j), (k), (l) and (m) go
+into the ``kernels`` line: each count is set to 0 just before its path
+runs and read just after.
 
 Every phase prints one line; any failure exits non-zero. The last three
 lines are the ``kernels`` JSON, the card's name and power limit from
@@ -117,11 +137,14 @@ if not torch.cuda.is_available():
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+from d2slam_tpu_torch.comm.transport import LocalBus  # noqa: E402
 from d2slam_tpu_torch.config import D2Config  # noqa: E402
 from d2slam_tpu_torch.datasets import EuRoCDataset, RosbagReader, RosbagWriter  # noqa: E402
 from d2slam_tpu_torch.frontend import lk  # noqa: E402
 from d2slam_tpu_torch.frontend import loop_detector  # noqa: E402
 from d2slam_tpu_torch.frontend.loop_detector import LoopDetectorConfig  # noqa: E402
+from d2slam_tpu_torch.frontend import superglue as sg  # noqa: E402
+from d2slam_tpu_torch.frontend.matching import match_descriptors_radius  # noqa: E402
 from d2slam_tpu_torch.frontend.pnp import ransac_pnp_body  # noqa: E402
 from d2slam_tpu_torch.frontend.superpoint import (  # noqa: E402
     SuperPoint,
@@ -129,6 +152,7 @@ from d2slam_tpu_torch.frontend.superpoint import (  # noqa: E402
     load_params,
 )
 from d2slam_tpu_torch.frontend.tracker import FeatureTracker, TrackerConfig  # noqa: E402
+from d2slam_tpu_torch.frontend.train_frontend import load_weights  # noqa: E402
 from d2slam_tpu_torch.geometry.cameras import KBParams, PinholeParams  # noqa: E402
 from d2slam_tpu_torch.depth.fisheye_undist import remap_bilinear  # noqa: E402
 from d2slam_tpu_torch.depth.hitnet import HitNetConfig, hitnet_apply, hitnet_init  # noqa: E402
@@ -244,6 +268,22 @@ CALIB_ROT_SHARE, CALIB_TRANS_SHARE, CALIB_TD, CALIB_TD_SHARE = 0.35, 0.6, 0.008,
 RGBD_MIN_DEPTHS, RGBD_DEPTH_TOL = 20, 1e-6
 # phase l: frames of the threaded depth replay
 REPLAY_FRAMES = 12
+# phase m: tests/test_golden_textured.py::test_golden_textured_swarm's
+# frames and pins (inter-robot loops, the best loop's PnP inliers, the
+# joint RMSE in m); the full-width run's frames per robot (robot 0 at
+# phase 0 passes robot 1's starting places within them: 12 inter-robot
+# loops in 26 frames on an H100);
+# SuperGlue on the card against the CPU, as a share of the log-assignment
+# matrix's largest magnitude (float32, sums in another order): the
+# trained compact net differed by 7.3e-7 of it on an H100 (8.8e-5 at
+# |logP| 121), so 1e-5 holds it with a margin of ~14x and fails a TF32
+# or partly wrong product (~1e-3); the same limit holds the 9-layer net;
+# at least 98 % of the CPU's matches are equal on the card (a match at
+# the threshold may flip)
+SUPERGLUE_WEIGHTS = os.path.join(REPO, "weights", "superglue_synth.npz")
+SWARM_GOLDEN_FRAMES, SWARM_FULL_FRAMES = 26, 20
+SWARM_MIN_INTER_LOOPS, SWARM_MIN_BEST_INLIERS, SWARM_JOINT_RMSE = 3, 50, 0.35
+SG_LOGP_TOL, SG_MIN_EQUAL_MATCHES = 1e-5, 0.98
 
 
 def fail(msg):
@@ -1259,7 +1299,7 @@ def phase_textured(params, dev):
     res = dict(golden_vio=vio, golden_quadcam=quad, golden_vio_bf16=bf16,
                golden_vio_bf16_runs_max_pose_diff=spread, system_480x640=full)
     print("phase j (textured room: golden 240x320 stereo and quadcam, stereo with the bf16 "
-          "stem twice, system 480x640 with loops): " + json.dumps(res), flush=True)
+          "stem, system 480x640 with loops): " + json.dumps(res), flush=True)
     if (vio["keyframes"] < 15 or not vio["ate_m"] < TEXTURED_VIO_ATE
             or quad["keyframes"] < 10 or not quad["ate_m"] < TEXTURED_QUADCAM_ATE):
         fail(f"textured golden scenarios out of their pins: {vio} / {quad}")
@@ -1435,7 +1475,7 @@ def calibration_tests(dev):
     return dict(extrinsic=ext, td=td)
 
 
-def calibration_from_images(params, dev, mode, H=480, W=640, fx=440.0, n_frames=24):
+def calibration_from_images(params, dev, mode, H=480, W=640, fx=440.0, n_frames=16):
     """(k) tests/test_online_calib.py's recovery runs from rendered blob
     images through ``D2SLAMSystem`` (bf16 stem): ``mode`` "extrinsic"
     (the perturbed extrinsics given to the system) or "td" (the images
@@ -1613,6 +1653,224 @@ def phase_depth_replay(dev, n_frames=REPLAY_FRAMES):
     return res
 
 
+def superglue_sets(n, D, seed):
+    """Two sets of ``n`` keypoints in a 480x640 image whose first 60 %
+    correspond (shifted 3 px, descriptor noise), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    k = int(0.6 * n)
+    ka = rng.uniform(0, [640, 480], (n, 2)).astype(np.float32)
+    kb = rng.uniform(0, [640, 480], (n, 2)).astype(np.float32)
+    da = rng.normal(size=(n, D)).astype(np.float32)
+    db = rng.normal(size=(n, D)).astype(np.float32)
+    kb[:k], db[:k] = ka[:k] + 3.0, da[:k] + 0.3 * rng.normal(size=(k, D)).astype(np.float32)
+    da /= np.linalg.norm(da, axis=1, keepdims=True)
+    db /= np.linalg.norm(db, axis=1, keepdims=True)
+    return (ka, da, rng.uniform(0.1, 1, n).astype(np.float32), np.ones(n, bool),
+            kb, db, rng.uniform(0.1, 1, n).astype(np.float32), np.ones(n, bool))
+
+
+def superglue_9layer_random():
+    """The default 9-layer net from a seeded random init, scaled so that it
+    is well conditioned: He-normal weights alone grow the features ~1e11-fold
+    through 18 residual attention blocks and match nothing. The residual
+    branches' last layers and the keypoint encoder's output are scaled by
+    0.1 and the final projection by 8, so the features stay near the
+    descriptors and the corresponding points of ``superglue_sets`` match
+    (184 matches, 180 of them right, on the CPU)."""
+    params = sg.superglue_init(torch.Generator().manual_seed(0))
+    params["kenc2"]["w"] *= 0.1
+    params["final"]["w"] *= 8.0
+    for name, node in params.items():
+        if name.startswith(("self", "cross")):
+            node["mlp2"]["w"] *= 0.1
+    return params
+
+
+def superglue_alone(dev):
+    """(m.1) SuperGlue at 300 x 300 keypoints, 256-d: the shipped compact
+    weights and the default 9-layer config from a scaled random init. The
+    card's log-assignment against the same module on the CPU (within
+    ``SG_LOGP_TOL`` of the matrix's largest magnitude) and their matches;
+    ms and kernel launches per call; the kNN ratio matcher on the same
+    sets."""
+    out = {}
+    for name, params, cfg in (
+            ("compact_3layer_shipped", load_weights(SUPERGLUE_WEIGHTS), sg.COMPACT),
+            ("default_9layer_random_scaled", superglue_9layer_random(), sg.SuperGlueConfig())):
+        sets = superglue_sets(300, 256, seed=5)
+        hw = (480, 640)
+        gpu = sg.SuperGlue(params, cfg, device=dev)
+        cpu = sg.SuperGlue(params, cfg, device="cpu")
+        Lg = gpu.logP(*sets, hw).cpu().numpy()
+        Lc = cpu.logP(*sets, hw).numpy()
+        scale = max(1.0, float(np.abs(Lc).max()))
+        err = float(np.abs(Lg - Lc).max())
+        ig, og = gpu.match(*sets, hw)
+        ic, oc = cpu.match(*sets, hw)
+        t = [torch.as_tensor(x, device=dev) for x in sets]
+        ka, da, _, va, kb, db, _, vb = t
+        out[name] = dict(
+            layers=cfg.num_layers, sinkhorn_iters=cfg.sinkhorn_iters,
+            logP_max_abs_err=err, logP_scale=scale, tol=SG_LOGP_TOL * scale,
+            matches_card=int(og.sum()), matches_cpu=int(oc.sum()),
+            equal_matches=int(np.sum(og & oc & (ig == ic))),
+            ms_per_call=time_ms(lambda: gpu.logP(*t, hw), iters=20, warmup=3),
+            launches_per_call=count_launches(lambda: gpu.logP(*t, hw)),
+            knn_ms=time_ms(lambda: match_descriptors_radius(da, db, ka, kb, va, vb,
+                                                            radius=1e9), iters=20, warmup=3))
+        r = out[name]
+        if not (np.isfinite(Lg).all() and err <= SG_LOGP_TOL * scale and r["matches_cpu"] > 0
+                and r["equal_matches"] >= SG_MIN_EQUAL_MATCHES * r["matches_cpu"]):
+            fail(f"SuperGlue on the card differs from its CPU result: {r}")
+    return out
+
+
+def swarm_run(params, dev, H, W, fx, n_frames, compute_dtype, superglue_local=False):
+    """Two ``D2SLAMSystem``s in the golden textured room
+    (tests/test_golden_textured.py::test_golden_textured_swarm: CircleSim
+    seed 7 at phases 0 and 0.3, 300 keypoints, threshold 0.008, NetVLAD,
+    SuperGlue remote with the shipped weights, its loop gates) on a
+    ``LocalBus``, greedy broadcast, each polling after every frame; then
+    each robot solves its joint pose graph. The test's pins read robot 1's
+    graph (robot 1 merges into robot 0's reference frame, so its peer
+    never changes world): the graph the JAX package's run of the test
+    reads, where robot 0 verifies no inter-robot loop itself. Robot 0's
+    graph chains robot 1's keyframes across that merge with an ego edge
+    holding the jump, in both packages (ROADMAP Queue 3): printed."""
+    room = TexturedRoom(half=14.0, height=7.0, seed=3)
+    sims = [CircleSim(seed=7, baseline=0.2, n_landmarks=10, phase=ph) for ph in (0.0, 0.3)]
+    stamps = [k / sims[0].frame_hz for k in range(n_frames)]
+    renders = [room_views(room, sim.ext, H, W, fx) for sim in sims]
+    frames = render_ahead([lambda t=t, i=i: renders[i](sims[i].gt_pose(t)[0], t)
+                           for t in stamps for i in range(2)])
+    bus = LocalBus()
+    systems, sg_ms = [], {"local": [], "remote": []}
+
+    def timed(fn, key):
+        def run(*a):
+            t0 = time.perf_counter()
+            r = fn(*a)
+            sg_ms[key].append((time.perf_counter() - t0) * 1e3)   # returns host arrays
+            return r
+        return run
+
+    for i, sim in enumerate(sims):
+        cfg = golden_config()
+        cfg.estimator.focal_length = fx
+        s = D2SLAMSystem(
+            cfg, SystemConfig(drone_id=i, pgo_every_n_kf=100, netvlad_weights=NETVLAD_WEIGHTS,
+                              enable_superglue_remote=True, enable_superglue_local=superglue_local,
+                              superglue_img_hw=(H, W), superglue_weights=SUPERGLUE_WEIGHTS),
+            sim.ext, [PinholeParams.make(fx, fx, W / 2, H / 2) for _ in range(2)],
+            sp_params=params, sp_cfg=SuperPointConfig(max_keypoints=300, threshold=0.008,
+                                                      compute_dtype=compute_dtype),
+            transport=bus.endpoint(i),
+            tracker_cfg=TrackerConfig(min_keyframe_parallax=4.0, search_radius=30.0),
+            loop_cfg=LoopDetectorConfig(gdesc_dim=1024, min_gap_frames=2, min_inliers=20,
+                                        min_match_per_dir=8, pnp_thresh=16.0 / 460.0),
+            frame_rate=sim.frame_hz, device=dev)
+        s.detector.matcher_fn = timed(s.detector.matcher_fn, "remote")
+        if superglue_local:
+            s.tracker.matcher_fn = timed(s.tracker.matcher_fn, "local")
+        s.tracker.extract(np.zeros((2, H, W), np.float32))   # warm, not counted
+        systems.append(s)
+    for s, sim in zip(systems, sims):
+        for (t, a, g) in sim.imu_samples(-0.3, 0.0):
+            s.input_imu(t, a, g)
+    torch.cuda.synchronize()
+    stem.launches = 0
+    for s in systems:
+        s.superglue.calls = 0
+    t_prev, t_run = 0.0, time.perf_counter()
+    for k, t in enumerate(stamps):
+        for i, (s, sim) in enumerate(zip(systems, sims)):
+            if k:
+                for (ts, a, g) in sim.imu_samples(t_prev + 1e-6, t + 1e-6):
+                    s.input_imu(ts, a, g)
+            s.input_stereo(t, *frames[2 * k + i])
+        t_prev = t
+        for s in systems:
+            s.poll_network(now=t)
+    for _ in range(3):
+        for s in systems:
+            s.poll_network(now=t_prev)
+    res = dict(frames_per_robot=n_frames, hw=[H, W], compute_dtype=compute_dtype,
+               superglue_local=superglue_local, stem_launches=stem.launches,
+               aligned=bool(systems[1].swarm.alignments))
+    for s in systems:
+        s.solve_pgo()
+    wall = time.perf_counter() - t_run
+    res["ms_per_frame_per_robot"] = wall * 1e3 / (2 * n_frames)
+    robots = []
+    for s in systems:
+        perf, est = s.perf.report(), s.estimator.perf.report()
+        inter = [e for e in s.loop_edges if e.drone_id_a != e.drone_id_b]
+        peer = 1 - s.drone_id
+        st_s, ego_s = s.trajectory(drone_id=s.drone_id, optimized=False)
+        T = np_lie.pose_compose(sims[s.drone_id].gt_pose(st_s[0])[0],
+                                np_lie.pose_inverse(ego_s[0]))
+        st_o, opt_o = s.trajectory(drone_id=peer)
+        errs = [np.linalg.norm(np_lie.pose_compose(T, p)[:3] - sims[peer].gt_pose(t)[0][:3])
+                for t, p in zip(st_o, opt_o)]
+        robots.append(dict(
+            peer_keyframes_in_graph=len(st_o),
+            peer_rmse_m=float(np.sqrt(np.mean(np.square(errs)))) if errs else None,
+            finite=bool(np.isfinite(opt_o).all()),
+            longest_ego_edge_m=max((float(d) for (_, _, _, d) in s._ego_edges), default=0.0),
+            drone_id=s.drone_id, ref_frame_id=s.ref_frame_id, alignments=sorted(s.swarm.alignments),
+            inter_loops=len(inter), inter_inliers=[e.inliers for e in inter],
+            superglue_calls=s.superglue.calls, pgo_solves=s.pgo_solve_count,
+            remote_nodes=sum(d != s.drone_id for (d, _, _, _) in s._pgo_meta),
+            estimator_ms={k: v["mean_ms"] for k, v in est.items()},
+            stage_ms={k: v["mean_ms"] for k, v in perf.items()},
+            extract_ms_per_frame=s.tracker.perf.report()["extract"]["mean_ms"],
+            tracker_host_ms_per_frame=s.tracker.perf.report()["host"]["mean_ms"]))
+    res["robots"] = robots
+    res["superglue_ms_per_local_match"] = float(np.mean(sg_ms["local"])) if sg_ms["local"] else None
+    res["superglue_ms_per_loop_candidate"] = (float(np.mean(sg_ms["remote"]))
+                                              if sg_ms["remote"] else None)
+    host = robots[1]
+    res.update(host=1, ref_frame_ids=[s.ref_frame_id for s in systems],
+               inter_loops=host["inter_loops"],
+               best_inliers=max(host["inter_inliers"], default=0),
+               other_keyframes_in_host_graph=host["peer_keyframes_in_graph"],
+               joint_rmse_m=host["peer_rmse_m"],
+               finite=all(r["finite"] for r in robots))
+    return res, systems
+
+
+def phase_swarm(params, dev):
+    """(m) the swarm on the card: SuperGlue alone (m.1); the JAX golden
+    textured swarm at 240x320 with the test's float32 backbone, gated by
+    its pins, and once more with the bf16 stem, printed (m.2); two robots
+    at 480x640 with the bf16 stem, SuperGlue local and remote (m.3)."""
+    alone = superglue_alone(dev)
+    golden, _ = swarm_run(params, dev, 240, 320, 220.0, SWARM_GOLDEN_FRAMES, "float32")
+    golden_bf16, _ = swarm_run(params, dev, 240, 320, 220.0, SWARM_GOLDEN_FRAMES, "bfloat16")
+    full, systems = swarm_run(params, dev, 480, 640, 440.0, SWARM_FULL_FRAMES, "bfloat16",
+                              superglue_local=True)
+    res = dict(superglue=alone, golden_textured_swarm_f32=golden,
+               golden_textured_swarm_bf16=golden_bf16, swarm_480x640=full)
+    print("phase m (swarm: SuperGlue alone, golden textured swarm 240x320, two robots "
+          "480x640 with SuperGlue local and remote): " + json.dumps(res), flush=True)
+    if not (golden["aligned"] and golden["inter_loops"] >= SWARM_MIN_INTER_LOOPS
+            and golden["best_inliers"] >= SWARM_MIN_BEST_INLIERS
+            and golden["other_keyframes_in_host_graph"] >= 8 and golden["finite"]
+            and golden["ref_frame_ids"] == [0, 0]
+            and golden["joint_rmse_m"] < SWARM_JOINT_RMSE):
+        fail(f"golden textured swarm out of its pins: {golden}")
+    merged = [s for s in systems if s.ref_frame_id != s.drone_id]
+    if not (full["aligned"] and full["inter_loops"] >= 1 and full["finite"]
+            and any(r["pgo_solves"] >= 1 for r in full["robots"])
+            and [s.drone_id for s in merged] == [1]):
+        fail(f"480x640 swarm did not align, merge and solve: {full}")
+    for r in (golden_bf16, full):
+        if r["stem_launches"] != 2 * r["frames_per_robot"]:
+            fail(f"phase m: stem launches {r['stem_launches']} != 2 robots x "
+                 f"{r['frames_per_robot']} frames")
+    return res
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -1649,7 +1907,7 @@ def main():
     sp_cfg = SuperPointConfig(compute_dtype="bfloat16")
     cfg = D2Config()
     cfg.estimator.focal_length = 440.0
-    res = run_sequence(params, dev, 480, 640, 440.0, 24, cfg, sp_cfg,
+    res = run_sequence(params, dev, 480, 640, 440.0, 16, cfg, sp_cfg,
                        TrackerConfig(), n_landmarks=300)
     print("phase c (full width 480x640, default configs): " + json.dumps(res), flush=True)
     if not res["finite"] or res["solves"] < 1:
@@ -1699,6 +1957,8 @@ def main():
     mark("k")
     replay = phase_depth_replay(dev)
     mark("l")
+    swarm = phase_swarm(params, dev)
+    mark("m")
 
     big = kernel_rows["2x480x640"]
     euroc = kernel_rows[f"2x{EUROC_H}x{EUROC_W}"]
@@ -1714,7 +1974,9 @@ def main():
                      + sum(r["stem_launches"] for r in textured["golden_vio_bf16"])
                      + sum(r["stem_launches"] for k, r in options.items()
                            if not k.startswith("calibration"))
-                     + sum(r["stem_launches"] for r in options["calibration_from_images"].values())),
+                     + sum(r["stem_launches"] for r in options["calibration_from_images"].values())
+                     + swarm["golden_textured_swarm_bf16"]["stem_launches"]
+                     + swarm["swarm_480x640"]["stem_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],

@@ -26,4 +26,10 @@ LM or matrix-free PCG, ``pgo/``), with RGB-D input, dataset replay
 quadcam depth replay (``runtime/depth_replay.py``). The estimator takes
 inverse-depth or world-position (``pos3d``) landmarks, LM or dogleg
 steps, and estimates extrinsics and the camera time offset online.
+
+The two-robot swarm runs in the single estimation mode: ``comm/`` (the
+wire codec, the UDP multicast transport, an in-memory bus, LoopNet),
+SuperGlue as the tracker's and the loop detector's matcher, inter-robot
+loops, map alignment and merge (``vins/swarm.py``,
+``D2Estimator.move_all_poses``) and one pose graph over both robots.
 """

@@ -30,8 +30,13 @@ Images come in as float [0, 1] or ``uint8``; they upload as ``uint8``.
 
 RGB-D (``process_rgbd``, reference PINHOLE_DEPTH): one view and an
 aligned depth image; each keypoint carries the depth sampled there, as
-a distance along its ray. The learned matcher is not ported yet
-(ROADMAP.md).
+a distance along its ray.
+
+The learned matcher (``matcher_fn``, reference enable_superglue_local;
+``frontend/superglue.make_tracker_matcher``) replaces the radius-gated
+descriptor matching at every call site: the keyframe gap fill of the
+stereo path, the cross-view association and the per-view keyframe match
+of the multi-view path.
 """
 from __future__ import annotations
 
@@ -180,6 +185,7 @@ class FeatureTracker:
         extrinsics=None,
         extract_fn=None,
         aux_fn=None,
+        matcher_fn=None,
     ):
         """sp_params: the SuperPoint parameter pytree (numpy, JAX
         layout) or a ready ``SuperPoint``. ``device`` defaults to
@@ -200,7 +206,12 @@ class FeatureTracker:
         extrinsics: [C, 7] body_T_cam, required for multi-view (quadcam)
         cross-view association, which predicts feature positions through
         the relative camera rotations (reference matchLocalFeatures
-        prediction_using_extrinsic)."""
+        prediction_using_extrinsic).
+
+        matcher_fn: optional learned matcher ``f(desc_a, kpts_a, valid_a,
+        desc_b, kpts_b, valid_b) -> (idx, ok)`` replacing the radius-gated
+        nearest-neighbour matching (reference enable_superglue_local)."""
+        self.matcher_fn = matcher_fn
         self._extract_fn = extract_fn
         self._aux_fn = aux_fn
         self.last_aux = None
@@ -276,6 +287,12 @@ class FeatureTracker:
 
     def _match(self, desc_a, pts_a, valid_a, desc_b, pts_b, valid_b,
                radius: float):
+        """Descriptor association: the learned matcher when one is set,
+        else the radius-gated nearest-neighbour ratio match. Host numpy
+        (idx, ok)."""
+        if self.matcher_fn is not None:
+            idx, ok = self.matcher_fn(desc_a, pts_a, valid_a, desc_b, pts_b, valid_b)
+            return np.asarray(idx), np.asarray(ok)
         idx, ok = match_descriptors_radius(
             desc_a, desc_b, pts_a, pts_b, valid_a, valid_b,
             radius=radius, ratio=self.cfg.match_ratio,

@@ -1,20 +1,25 @@
-"""Synthetic scenes for the learned frontend: corner images with exact
-ground truth, random homographies and a bilinear warp.
+"""Synthetic scenes for the learned frontend, matcher evaluation and
+weight files.
 
 Counterpart of the scene generators of
 ``d2slam_tpu/frontend/train_frontend.py`` (MagicPoint-style synthetic
 shapes, arXiv:1712.07629): ``synth_corners_image``, ``cell_labels``,
 ``make_batch``, ``random_homography`` and ``warp_image``, under the
-same names. Data generation is host numpy, with the shapes drawn by
-Pillow as the JAX package draws them (imported where it is used, so the
-rest of the port never needs it); the warp is a torch function on the
-image's device. The training half of that module is not ported yet
-(ROADMAP.md).
+same names; of its matcher evaluation (``_gt_assignment``,
+``eval_matcher_pr``) and of ``load_weights``. Data generation is host
+numpy, with the shapes drawn by Pillow as the JAX package draws them
+(imported where it is used, so the rest of the port never needs it);
+the warp and the evaluation run on the image's device. The training
+half of that module is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
 import torch
+
+from d2slam_tpu_torch.frontend.superpoint import SuperPoint, superpoint_extract
 
 
 # ---------------------------------------------------------------------------
@@ -179,3 +184,74 @@ def warp_image(img: torch.Tensor, Hmat) -> torch.Tensor:
          + img[y0 + 1, x0] * (1 - wx) * wy
          + img[y0 + 1, x0 + 1] * wx * wy)
     return torch.where(inb, v, torch.zeros_like(v))
+
+
+# ---------------------------------------------------------------------------
+# matcher evaluation on homography pairs
+# ---------------------------------------------------------------------------
+
+
+def _gt_assignment(kptsA, validA, kptsB, validB, Hinv, px_thresh=3.0):
+    """Ground-truth A -> B match index from the homography (``Hinv`` maps
+    A pixels to B pixels). Returns (gt [N] int64: an index into B, or M
+    for the dustbin; matched [N] bool)."""
+    N, M = kptsA.shape[0], kptsB.shape[0]
+    ph = torch.cat([kptsA, torch.ones((N, 1), dtype=kptsA.dtype, device=kptsA.device)], dim=1)
+    dst = ph @ Hinv.T
+    pB = dst[:, :2] / torch.clamp_min(dst[:, 2:3], 1e-9)
+    d2 = torch.sum((pB[:, None, :] - kptsB[None, :, :]) ** 2, dim=-1)
+    d2 = torch.where(validB[None, :], d2, torch.full_like(d2, 1e12))
+    dmin, j = torch.min(d2, dim=1)
+    matched = validA & (dmin < px_thresh ** 2)
+    return torch.where(matched, j, torch.full_like(j, M)), matched
+
+
+def eval_matcher_pr(match_fn, model: SuperPoint, hw, n_pairs=20, seed=123, px_thresh=3.0):
+    """Precision and recall of a matcher on held-out homography pairs
+    (the JAX package's ``eval_matcher_pr``, with the port's SuperPoint
+    ``model`` for the JAX package's ``sp_params, sp_cfg``).
+
+    match_fn(a, b) -> (idx [N], ok [N]), with a and b one image's
+    ``SuperPointOutput`` each. Returns (precision, recall, n_correct,
+    n_pred, n_gt)."""
+    H, W = hw
+    rng = np.random.default_rng(seed)
+    dev = model.device
+    tp = pred = gt_n = 0
+    for _ in range(n_pairs):
+        imgs, _ = make_batch(rng, 1, H, W)
+        Hm = random_homography(rng, H, W).astype(np.float32)
+        img = torch.as_tensor(imgs[0], device=dev)
+        warped = warp_image(img, Hm)
+        out = superpoint_extract(model, torch.stack([img, warped]))
+        a, b = (type(out)(*(f[i] for f in out)) for i in (0, 1))
+        gt, matched = _gt_assignment(
+            a.kpts, a.valid, b.kpts, b.valid,
+            torch.linalg.inv(torch.as_tensor(Hm, device=dev)), px_thresh)
+        idx, ok = match_fn(a, b)
+        idx = np.asarray(idx.cpu() if torch.is_tensor(idx) else idx)
+        ok = np.asarray(ok.cpu() if torch.is_tensor(ok) else ok) & a.valid.cpu().numpy()
+        gt, matched = gt.cpu().numpy(), matched.cpu().numpy()
+        tp += int(np.sum(ok & matched & (idx == gt)))
+        pred += int(np.sum(ok))
+        gt_n += int(np.sum(matched))
+    return tp / max(pred, 1), tp / max(gt_n, 1), tp, pred, gt_n
+
+
+# ---------------------------------------------------------------------------
+# weight files
+# ---------------------------------------------------------------------------
+
+
+def load_weights(path: str) -> Dict:
+    """An ``.npz`` written by the JAX package's ``save_weights`` (keys such
+    as ``cross0/k/w``) as a nested dict of numpy arrays."""
+    raw = np.load(path)
+    out: Dict = {}
+    for name in raw.files:
+        parts = name.split("/")
+        d = out
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = np.asarray(raw[name])
+    return out

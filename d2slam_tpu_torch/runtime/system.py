@@ -1,27 +1,39 @@
-"""One robot's full stack in one object: frontend, VIO, loop closure, PGO.
+"""One robot's full stack in one object: frontend, VIO, loop closure, PGO,
+and the swarm link.
 
-Counterpart of ``d2slam_tpu/runtime/system.py`` in its single-robot mode
-(``estimation_mode="single"``, no transport). The reference runs
-``d2vins_node`` (CNN frontend, tracking, VIO) and ``d2pgo_node``
-(pose-graph backend) as processes joined by ROS topics
+Counterpart of ``d2slam_tpu/runtime/system.py`` in its
+``estimation_mode="single"``. The reference runs ``d2vins_node`` (CNN
+frontend, tracking, VIO, keyframe broadcast), ``d2pgo_node`` (pose-graph
+backend) and ``d2comm_node`` as processes joined by ROS topics
 (d2vins/src/d2vins_node.cpp:29, 128-303; d2pgo/src/d2pgo_node.cpp:15-230);
 here they are one library object:
 
     images + IMU ──► FeatureTracker (SuperPoint + fused NetVLAD) ──► D2Estimator
-                          │                                             │ odometry
-                          └─► global descriptor ─► LoopDetector ─► LoopEdge
-                                                                        ▼
-                                                   pose-graph solve (PCM, LM / PCG)
+        │                                                               │ odometry
+        ├─► global descriptor ─► LoopDetector ─► LoopEdge ──────────────┤
+        │                                                               ▼
+        └─► LoopNet broadcast (UDP / LocalBus)          pose-graph solve (PCM, LM / PCG)
+                       ▲
+            remote keyframes ─► SwarmManager ─► inter-robot loops, map alignment,
+                                                reference-frame merge
 
-The tensors of the frontend, the estimator and the pose-graph solve live
-on ``device`` (default ``cuda``); this class is the host-side conductor:
-ids, the retrieval database, the pose-graph tables. With ``pgo_async``
-the pose-graph solve runs on one worker thread and its own CUDA stream.
+The tensors of the frontend, the estimator, SuperGlue and the pose-graph
+solve live on ``device`` (default ``cuda``); this class is the host-side
+conductor: ids, the retrieval database, the pose-graph tables, the
+packets. With ``pgo_async`` the pose-graph solve runs on one worker
+thread and its own CUDA stream.
+
+With a ``transport`` each robot broadcasts its keyframes (greedy, or
+lazily as headers that a peer's retrieval gate pulls in full), receives
+its peers' keyframes and loop edges (``poll_network``), detects
+inter-robot loops, aligns the peers' maps, merges reference frames
+toward the lowest drone id and solves one pose graph over every robot's
+keyframes. ``enable_superglue_local`` / ``_remote`` route the tracker's
+and the loop detector's matching through SuperGlue.
 
 Not ported yet, and raising ``NotImplementedError``: the multi-robot
-modes (``estimation_mode`` "distributed" / "server", a ``transport``,
-``enable_dpgo``: the comm and multi-robot slices) and the learned
-matcher (``enable_superglue_local`` / ``_remote``: the SuperGlue slice).
+estimators (``estimation_mode`` "distributed" / "server", with the
+consensus over the transport) and ``enable_dpgo``: the multi-robot slice.
 Dropped as TPU placement
 workarounds with no counterpart on a local card: ``host_glue_on_cpu`` /
 ``default_to_cpu`` and the ``PackedAccelFn`` wrappers of the extraction,
@@ -39,6 +51,15 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from d2slam_tpu_torch.comm.codec import RemoteKeyframePacket
+from d2slam_tpu_torch.comm.loopnet import CH_KF_REQUEST, LoopNet, nearby_drones_from_pgo
+from d2slam_tpu_torch.comm.transport import (
+    CH_SWARM_LOOP,
+    CH_VIOKF_HEADER,
+    CH_VIOKF_IMG,
+    CH_VIOKF_LANDMARKS,
+    ChannelRouter,
+)
 from d2slam_tpu_torch.config import D2Config
 from d2slam_tpu_torch.frontend import netvlad
 from d2slam_tpu_torch.frontend import superpoint
@@ -48,13 +69,23 @@ from d2slam_tpu_torch.frontend.loop_detector import (
     LoopDetectorConfig,
     LoopEdge,
 )
+from d2slam_tpu_torch.frontend.superglue import (
+    COMPACT,
+    SuperGlue,
+    SuperGlueConfig,
+    make_loop_matcher,
+    make_tracker_matcher,
+    superglue_init,
+)
 from d2slam_tpu_torch.frontend.tracker import FeatureTracker, TrackerConfig, _img_u8
+from d2slam_tpu_torch.frontend.train_frontend import load_weights
 from d2slam_tpu_torch.pgo import PGOEdges, PGOLayout, PGOReport, PGOState, solve_pgo, solve_pgo_pcg
 from d2slam_tpu_torch.pgo.pcm import pcm_filter
 from d2slam_tpu_torch.utils import np_lie
 from d2slam_tpu_torch.utils.device import resolve_device
 from d2slam_tpu_torch.utils.perf import PerfTracker
 from d2slam_tpu_torch.vins.estimator import D2Estimator
+from d2slam_tpu_torch.vins.swarm import SwarmManager
 from d2slam_tpu_torch.vins.types import FrontendFrame, Odometry
 
 
@@ -93,16 +124,34 @@ class SystemConfig:
     ego_cov_min: float = 1e-4
     pcm_thres: float = 1.5               # PCM gate on loop edges
     gdesc_dim: int = 1024
-    # reference ESTIMATION_MODE; only "single" is ported
+    lazy_broadcast: bool = False         # lazy_broadcast_keyframe
+    broadcast: bool = True               # send keyframes when a transport is set
+    # ship the PNG-compressed camera view(s) with every keyframe
+    # (reference send_img -> VIOKF_IMG_ARRAY; debug and visualization)
+    send_img: bool = False
+    # reference ESTIMATION_MODE; only "single" is ported (the others and
+    # DPGO, with their knobs, come with the multi-robot slice)
     estimation_mode: str = "single"
     enable_dpgo: bool = False
+    broadcast_loops: bool = True         # share loops on SWARM_LOOP_CONN
+    # nearby-drone gate of the lazy broadcast's full-frame escalation
+    # (reference getNearbyDronesbyPGOData, d2estimator.cpp:931-976)
+    nearby_distance: float = 5.0
+    nearby_max_age: float = 10.0
+    # learned matcher (reference enable_superglue_local / _remote): the
+    # tracker's local matching and / or the loop detector's matching go
+    # through SuperGlue, with the weights of the superglue_params argument
+    # or superglue_weights (random init, with a warning, without either)
     enable_superglue_local: bool = False
     enable_superglue_remote: bool = False
+    superglue_img_hw: tuple = (480, 640)
     # trained frontend weights (npz, the JAX package's layout): SuperPoint
     # weights replace the sp_params argument; NetVLAD weights replace the
-    # weight-free global descriptor and run fused into the extraction
+    # weight-free global descriptor and run fused into the extraction;
+    # SuperGlue weights (the compact 3-layer recipe) feed the matchers
     superpoint_weights: str = ""
     netvlad_weights: str = ""
+    superglue_weights: str = ""
 
 
 def image_embedding_gdesc(img: np.ndarray, dim: int = 1024) -> np.ndarray:
@@ -121,8 +170,8 @@ def image_embedding_gdesc(img: np.ndarray, dim: int = 1024) -> np.ndarray:
     return out / n if n > 1e-9 else out
 
 
-def _not_ported(what: str, where: str):
-    raise NotImplementedError(f"{what} is not ported yet ({where})")
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet (the multi-robot slice)")
 
 
 class D2SLAMSystem:
@@ -134,8 +183,14 @@ class D2SLAMSystem:
     sp_cfg: SuperPoint weights (numpy, JAX layout) and config.
     extract_fn: optional ``f(img, cam_id) -> SuperPointOutput`` replacing
     SuperPoint. gdesc_fn: optional ``f(img) -> [G]`` global descriptor
-    for frames whose tracker computed none. device: default ``cuda``;
-    raises without a card unless ``device="cpu"``.
+    for frames whose tracker computed none. transport: optional swarm
+    transport (``comm.transport.UDPMulticastTransport``, a ``LocalBus``
+    endpoint, anything with ``send`` / ``recv``). matcher_fn /
+    loop_matcher_fn: learned matchers of the tracker and the loop
+    detector (they win over ``enable_superglue_*``); superglue_params /
+    superglue_cfg: SuperGlue weights (JAX layout) and configuration for
+    those flags. device: default ``cuda``; raises without a card unless
+    ``device="cpu"``.
     """
 
     def __init__(
@@ -153,20 +208,27 @@ class D2SLAMSystem:
         tracker_cfg: Optional[TrackerConfig] = None,
         loop_cfg: Optional[LoopDetectorConfig] = None,
         frame_rate: float = 8.0,
+        matcher_fn=None,
+        loop_matcher_fn=None,
+        superglue_params=None,
+        superglue_cfg: Optional[SuperGlueConfig] = None,
         device=None,
     ):
+        if sys_cfg.estimation_mode in ("distributed", "server"):
+            _not_ported(f"estimation_mode={sys_cfg.estimation_mode!r}")
         if sys_cfg.estimation_mode != "single":
-            _not_ported(f"estimation_mode={sys_cfg.estimation_mode!r}", "the multi-robot slice")
-        if transport is not None:
-            _not_ported("a transport (keyframe broadcast, remote ingestion)", "the comm slice")
+            raise ValueError(f"unknown estimation_mode {sys_cfg.estimation_mode!r} "
+                             "(expected single | distributed | server)")
         if sys_cfg.enable_dpgo:
-            _not_ported("enable_dpgo (distributed PGO)", "the multi-robot slice")
-        if sys_cfg.enable_superglue_local or sys_cfg.enable_superglue_remote:
-            _not_ported("the SuperGlue matcher", "the SuperGlue slice")
+            _not_ported("enable_dpgo (distributed PGO)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ext = np.asarray(extrinsics, np.float64)
         self.drone_id = sys_cfg.drone_id
+        # the world frame our poses live in: our own drone id at the start,
+        # merged toward the lowest id in the swarm (reference D2State
+        # reference_frame_id and moveAllPoses, d2estimator.cpp:274-281)
+        self.ref_frame_id = self.drone_id
         self.perf = PerfTracker()
 
         if sp_cfg is None:
@@ -191,16 +253,40 @@ class D2SLAMSystem:
                 return nv(u8[None].float() / 255.0)[0].cpu().numpy()
         self.sys = sys_cfg
 
+        # config-driven SuperGlue matchers (explicit matcher_fn arguments win)
+        self.superglue: Optional[SuperGlue] = None
+        if sys_cfg.enable_superglue_local or sys_cfg.enable_superglue_remote:
+            if superglue_params is None and sys_cfg.superglue_weights:
+                superglue_params = load_weights(sys_cfg.superglue_weights)
+                superglue_cfg = superglue_cfg or COMPACT
+            superglue_cfg = superglue_cfg or SuperGlueConfig()
+            if superglue_params is None:
+                warnings.warn(
+                    "enable_superglue_local/remote is set but no trained weights were given "
+                    "(superglue_params / superglue_weights): running a random-init SuperGlue, "
+                    "which matches worse than the default nearest-neighbour matcher")
+                superglue_params = superglue_init(torch.Generator().manual_seed(0),
+                                                  superglue_cfg)
+            self.superglue = SuperGlue(superglue_params, superglue_cfg, device=self.device)
+            if sys_cfg.enable_superglue_local and matcher_fn is None:
+                matcher_fn = make_tracker_matcher(self.superglue, tuple(sys_cfg.superglue_img_hw))
+            if sys_cfg.enable_superglue_remote and loop_matcher_fn is None:
+                loop_matcher_fn = make_loop_matcher(self.superglue)
+
         self.tracker = FeatureTracker(
             sp_params, sp_cfg, cameras, tracker_cfg or TrackerConfig(),
             frame_rate=frame_rate, device=self.device, extrinsics=self.ext,
-            extract_fn=extract_fn, aux_fn=aux_fn,
+            extract_fn=extract_fn, aux_fn=aux_fn, matcher_fn=matcher_fn,
         )
         self.gdesc_fn = gdesc_fn or (lambda img: image_embedding_gdesc(img, sys_cfg.gdesc_dim))
 
         lc = loop_cfg or LoopDetectorConfig(gdesc_dim=sys_cfg.gdesc_dim)
         if self.netvlad is not None and lc.gdesc_dim != sys_cfg.gdesc_dim:
             lc = dataclasses.replace(lc, gdesc_dim=sys_cfg.gdesc_dim)
+        # the latest wire-reported position of each remote landmark: loop
+        # verification against a remote keyframe gets fresh 3D even where
+        # the entry predates the landmark's triangulation
+        self._remote_lm_pos: Dict[Tuple[int, int], np.ndarray] = {}
 
         def lm_pos_fn(drone_id: int, lm_ids) -> np.ndarray:
             out = np.full((len(lm_ids), 3), np.nan)
@@ -210,11 +296,18 @@ class D2SLAMSystem:
                     lm = db.get(int(lid))
                     if lm is not None and lm.position is not None:
                         out[k] = lm.position
+            else:
+                for k, lid in enumerate(lm_ids):
+                    p = self._remote_lm_pos.get((drone_id, int(lid)))
+                    if p is not None:
+                        out[k] = p
             return out
 
         def kf_pose_fn(drone_id: int, frame_id: int):
             # current best estimate of one of our keyframes: the sliding
-            # window first (most recent), then the optimized PGO table
+            # window first (most recent), then the optimized PGO table.
+            # Remote entries return None: their landmark refreshes are in
+            # the sender's frame, which the entry's pose already matches
             if drone_id != self.drone_id:
                 return None
             est = self.estimator
@@ -227,9 +320,32 @@ class D2SLAMSystem:
                     return self._pgo_poses[slot].copy()
             return None
 
-        self.detector = LoopDetector(lc, self.ext, lm_pos_fn=lm_pos_fn, kf_pose_fn=kf_pose_fn,
+        self.detector = LoopDetector(lc, self.ext, matcher_fn=loop_matcher_fn,
+                                     lm_pos_fn=lm_pos_fn, kf_pose_fn=kf_pose_fn,
                                      device=self.device)
+        self.swarm = SwarmManager(self.drone_id, self.detector)
         self.estimator = D2Estimator(cfg, self.ext, device=self.device)
+
+        self.loopnet: Optional[LoopNet] = None
+        self._last_bcast_t = 0.0
+        # whole-image attachments of send_img peers, a small ring for
+        # debugging and visualization (nothing in the estimation reads it)
+        self.remote_images: Dict[Tuple[int, int, int], np.ndarray] = {}
+        self._remote_img_order: List[Tuple[int, int, int]] = []
+        if transport is not None:
+            router = ChannelRouter(transport)
+            self.loopnet = LoopNet(
+                router.route({CH_VIOKF_HEADER, CH_VIOKF_LANDMARKS, CH_KF_REQUEST,
+                              CH_SWARM_LOOP, CH_VIOKF_IMG}),
+                self.drone_id, lazy=sys_cfg.lazy_broadcast, send_img=sys_cfg.send_img)
+            self.loopnet.on_keyframe = self._on_remote_keyframe
+            self.loopnet.on_loop_edge = self._on_loop_edge_msg
+            self.loopnet.on_image = self._on_image
+            # lazy-mode pull gate: request the full frame when the header's
+            # global descriptor hits our retrieval database (reference
+            # onImgDescHeaderRecevied -> getMatchedPrevKeyframe NetVLAD gate)
+            self.loopnet.want_full = lambda pkt: (
+                self.detector.query_score(pkt.gdesc) > self.detector.effective_netvlad_thres())
 
         # ---- PGO graph bookkeeping (host side) ----
         self._pgo_slot: Dict[Tuple[int, int], int] = {}   # (drone, frame) -> slot
@@ -248,8 +364,8 @@ class D2SLAMSystem:
         self._frame_id = 0
         # the mutex guards the PGO tables against the async worker
         # (snapshot and write-back); the epoch drops a solve whose input
-        # poses were rewritten while it ran (in the JAX package a
-        # multi-robot map merge does that; nothing in single mode does)
+        # poses were rewritten while it ran (a reference-frame merge or
+        # the first alignment of a peer's nodes)
         self._pgo_lock = threading.RLock()
         self._pgo_solve_lock = threading.Lock()
         self._pgo_epoch = 0
@@ -261,6 +377,7 @@ class D2SLAMSystem:
         self.odometry: Optional[Odometry] = None
         self.last_loop: Optional[LoopEdge] = None
         self.last_pgo_report: Optional[PGOReport] = None
+        self._aligned_drones: set = set()
 
     # ------------------------------------------------------------------
     # inputs
@@ -313,8 +430,15 @@ class D2SLAMSystem:
             self._register_keyframe(ff, od, None, gdesc=gdesc, entry=kf_entry)
         return od
 
+    def poll_network(self, now: float, timeout_ms: int = 0) -> int:
+        """Drain the transport: remote keyframes, loop edges, pull requests
+        and images. Returns the number of messages handled."""
+        if self.loopnet is None:
+            return 0
+        return self.loopnet.poll(now, timeout_ms)
+
     # ------------------------------------------------------------------
-    # keyframe fan-out: loop detection, PGO graph
+    # keyframe fan-out: loop detection, PGO graph, broadcast
     # ------------------------------------------------------------------
 
     def _frame_gdesc(self, imgs, aux: Optional[torch.Tensor] = None) -> np.ndarray:
@@ -364,9 +488,19 @@ class D2SLAMSystem:
             if entry is not None:
                 with self.perf.stage("loop_detect"):
                     edge = self.detector.detect(entry, gdesc)
-                self.detector.add_keyframe(entry, gdesc)
+                self.swarm.add_local_keyframe(entry, gdesc, ff.stamp)
                 if edge is not None:
                     self.add_loop_edge(edge)
+
+        if self.loopnet is not None and self.sys.broadcast:
+            pkt = self._make_packet(ff, pose, gdesc, entry, desc_of)
+            if pkt is not None:
+                # lazy-mode escalation: drones the pose graph says are near
+                # get the full frame (reference getNearbyDronesbyPGOData,
+                # d2vins_node.cpp:177-199)
+                nearby = self.nearby_drones(ff.stamp) if self.sys.lazy_broadcast else None
+                imgs = list(imgs) if self.sys.send_img and imgs is not None else None
+                self.loopnet.broadcast_keyframe(pkt, nearby_drones=nearby, images=imgs)
 
         self._kf_since_pgo += 1
         if (self.sys.enable_pgo and self._kf_since_pgo >= self.sys.pgo_every_n_kf
@@ -471,6 +605,139 @@ class D2SLAMSystem:
         return lm_pos
 
     # ------------------------------------------------------------------
+    # the swarm link: packets, remote keyframes, map merge
+    # ------------------------------------------------------------------
+
+    def _make_packet(self, ff: FrontendFrame, pose: np.ndarray, gdesc: np.ndarray,
+                     entry: Optional[KeyframeEntry],
+                     desc_of: Optional[Dict[int, np.ndarray]] = None
+                     ) -> Optional[RemoteKeyframePacket]:
+        """The keyframe's wire packet. An entry that carries its landmark
+        ids (``_make_entry``'s: each landmark once, from the first view
+        that sees it) gives one record per landmark with that view's
+        camera; a caller's entry without ids gives camera 0's
+        observations, as in the JAX package. (The JAX package tests
+        ``len(lm_ids) == n_obs`` for the first, which an entry listing each
+        landmark once fails: it would drop view 1's keypoints.)"""
+        if entry is None:
+            entry = self._make_entry(ff, pose, desc_of)
+        if entry is None:
+            return None
+        est = self.estimator
+        if len(entry.lm_ids) == len(entry.kpt_valid):
+            lm_ids = np.asarray(entry.lm_ids, np.int64)
+            lm_cam = np.asarray(entry.kpt_cam, np.uint8)
+            lm_rays = np.asarray(entry.kpt_rays, np.float32)
+            vel_of = {(o.cam_id, int(lid)): v for o in ff.observations
+                      for lid, v in zip(o.landmark_ids, np.asarray(o.ray_vels, np.float32))}
+            vels = np.asarray([vel_of[(int(c), int(i))] for c, i in zip(lm_cam, lm_ids)],
+                              np.float32).reshape(-1, 3)
+        else:
+            obs0 = next((o for o in ff.observations if o.cam_id == 0), None)
+            if obs0 is None:
+                return None
+            lm_ids = np.asarray(obs0.landmark_ids, np.int64)
+            lm_cam = np.zeros(len(lm_ids), np.uint8)
+            lm_rays = np.asarray(obs0.rays, np.float32)
+            vels = np.asarray(obs0.ray_vels, np.float32)
+        # the state block (reference VisualImageDescArray imu_buf, Ba/Bg and
+        # sld_win_status) that peers' multi-robot estimators ingest
+        imu_t, imu_acc, imu_gyr = est.imubuf.samples_between(self._last_bcast_t, ff.stamp + 1e-9)
+        self._last_bcast_t = ff.stamp
+        sb = est.state.sb[est._last_self_slot()].cpu().numpy().astype(np.float64)
+        vel = self.odometry.vel if self.odometry is not None else sb[:3]
+        return RemoteKeyframePacket(
+            drone_id=self.drone_id, frame_id=ff.frame_id, stamp=ff.stamp, is_keyframe=True,
+            pose=pose.astype(np.float32), gdesc=gdesc,
+            # landmark positions in our world (reference LandmarkPerFrame
+            # pt3d): receivers verify loops by PnP against our geometry
+            lm_pos3d=self._lm_positions_of(ff, [int(i) for i in lm_ids]).astype(np.float32),
+            lm_ids=lm_ids, lm_cam=lm_cam, lm_rays=lm_rays, lm_vels=vels,
+            lm_desc=np.asarray(entry.kpt_desc, np.float32),
+            ba=sb[3:6].astype(np.float32), bg=sb[6:9].astype(np.float32),
+            vel=np.asarray(vel, np.float32),
+            imu_t=imu_t, imu_acc=imu_acc.astype(np.float32), imu_gyr=imu_gyr.astype(np.float32),
+            sld_win=np.asarray([f.frame_id for f in est.frames if f.drone_id < 0], np.int64),
+            ref_frame_id=self.ref_frame_id,
+        )
+
+    def _on_image(self, dec: tuple) -> None:
+        did, fid, view, _n, img = dec
+        key = (did, fid, view)
+        if key not in self.remote_images:
+            self._remote_img_order.append(key)
+            if len(self._remote_img_order) > 64:
+                self.remote_images.pop(self._remote_img_order.pop(0), None)
+        self.remote_images[key] = img
+
+    def _on_remote_keyframe(self, pkt: RemoteKeyframePacket) -> None:
+        if len(pkt.lm_pos3d) == len(pkt.lm_ids):
+            fin = np.isfinite(pkt.lm_pos3d).all(axis=1)
+            for lid, p in zip(np.asarray(pkt.lm_ids)[fin],
+                              np.asarray(pkt.lm_pos3d, np.float64)[fin]):
+                self._remote_lm_pos[(pkt.drone_id, int(lid))] = p
+        d = pkt.drone_id
+        with self.perf.stage("remote_keyframe"):
+            edge = self.swarm.on_remote_keyframe(pkt)
+        # map merge toward the lower reference frame (reference
+        # addFrameRemote, d2estimator.cpp:274-281: yaw-only, moveAllPoses,
+        # adopt the remote reference_frame_id)
+        a = self.swarm.alignments.get(d)
+        if a is not None and pkt.ref_frame_id < self.ref_frame_id:
+            self._merge_reference_frame(pkt.ref_frame_id, np_lie.pose_inverse(a.transform))
+        # remote keyframes extend the pose graph in the remote drone's ego
+        # frame, seeded aligned once an alignment exists (packets in our
+        # reference frame need none). A peer that merges its map sends its
+        # later poses in the new world: its ego edge across the merge holds
+        # the jump, as in the JAX package (ROADMAP Queue 3)
+        pose = pkt.pose.astype(np.float64)
+        aligned = (pose.copy() if pkt.ref_frame_id == self.ref_frame_id
+                   else self.swarm.transform_remote_pose(d, pose))
+        self._add_pgo_node(d, pkt.frame_id, pkt.stamp, pose, init_pose=aligned)
+        if edge is not None:
+            self.add_loop_edge(edge)
+        # the first alignment of a drone re-seeds its graph nodes into our
+        # world (reference map merge moveAllPoses)
+        a = self.swarm.alignments.get(d)
+        if a is not None and d not in self._aligned_drones:
+            self._aligned_drones.add(d)
+            with self._pgo_lock:
+                self._pgo_epoch += 1
+                for slot, (dd, _, _, ego) in enumerate(self._pgo_meta):
+                    if dd == d:
+                        self._pgo_poses[slot] = np_lie.pose_compose(a.transform, ego)
+
+    def _merge_reference_frame(self, new_ref: int, T: np.ndarray) -> None:
+        """Shift this robot's whole world by the (yaw-only) transform ``T``
+        and adopt reference frame ``new_ref`` (reference moveAllPoses on a
+        map merge, d2estimator.cpp:274-281). Everything in our old world
+        moves: the estimator's window, prior and landmarks, the pose-graph
+        nodes and our stored ego poses, our retrieval entries, the
+        alignments and the odometry. A solve in flight is dropped."""
+        self.estimator.move_all_poses(T)
+        self.ref_frame_id = new_ref
+        with self._pgo_lock:
+            self._pgo_epoch += 1
+            for slot, (d, fid, stamp, ego) in enumerate(self._pgo_meta):
+                self._pgo_poses[slot] = np_lie.pose_compose(T, self._pgo_poses[slot])
+                if d == self.drone_id:
+                    self._pgo_meta[slot] = (d, fid, stamp, np_lie.pose_compose(T, ego))
+        self.detector.entries = [
+            e._replace(
+                pose=np_lie.pose_compose(T, e.pose),
+                lm_positions=np.asarray(
+                    [np_lie.pose_apply(T, p) if np.isfinite(p).all() else p
+                     for p in e.lm_positions]).reshape(-1, 3),
+            ) if e.drone_id == self.drone_id else e
+            for e in self.detector.entries
+        ]
+        for did, al in list(self.swarm.alignments.items()):
+            self.swarm.alignments[did] = al._replace(
+                transform=np_lie.pose_compose(T, al.transform))
+        if self.odometry is not None:
+            self.odometry = self.estimator.latest_odometry()
+
+    # ------------------------------------------------------------------
     # pose-graph backend (the d2pgo_node role)
     # ------------------------------------------------------------------
 
@@ -492,7 +759,7 @@ class D2SLAMSystem:
         return True
 
     def _add_pgo_node(self, drone_id: int, frame_id: int, stamp: float,
-                      ego_pose: np.ndarray) -> None:
+                      ego_pose: np.ndarray, init_pose: Optional[np.ndarray] = None) -> None:
         key = (drone_id, frame_id)
         if key in self._pgo_slot:
             return
@@ -513,7 +780,7 @@ class D2SLAMSystem:
             if self._pgo_poses is None:
                 self._pgo_poses = np.zeros((self._pgo_capacity, 7))
                 self._pgo_poses[:, 6] = 1.0
-            self._pgo_poses[slot] = ego_pose
+            self._pgo_poses[slot] = ego_pose if init_pose is None else init_pose
             prev = self._last_kf_of.get(drone_id)
             if prev is not None:
                 # ego-motion edge with distance-scaled covariance
@@ -521,7 +788,10 @@ class D2SLAMSystem:
                 self._ego_edges.append((prev, slot, rel, float(np.linalg.norm(rel[:3]))))
             self._last_kf_of[drone_id] = slot
 
-    def add_loop_edge(self, edge: LoopEdge) -> None:
+    def add_loop_edge(self, edge: LoopEdge, broadcast: bool = True) -> None:
+        """Add a loop edge to the pose graph (once per frame pair) and, with
+        a transport and ``broadcast_loops``, share it with the swarm
+        (reference SWARM_LOOP_CONN, loop_net.cpp:10-22)."""
         key = (edge.drone_id_a, edge.frame_id_a, edge.drone_id_b, edge.frame_id_b)
         if key in self._loop_keys:
             return
@@ -530,6 +800,32 @@ class D2SLAMSystem:
         self._loop_keys.add(key)
         self.loop_edges.append(edge)
         self.last_loop = edge
+        if broadcast and self.loopnet is not None and self.sys.broadcast_loops:
+            self.loopnet.broadcast_loop_edge(
+                edge.frame_id_a, edge.frame_id_b, edge.drone_id_a, edge.drone_id_b,
+                edge.rel_pose, edge.pos_cov, edge.yaw_cov, edge.inliers)
+
+    def _on_loop_edge_msg(self, dec: tuple) -> None:
+        fa, fb, da, db, rel, pc, yc, inl = dec
+        self.add_loop_edge(LoopEdge(frame_id_a=fa, frame_id_b=fb, drone_id_a=da,
+                                    drone_id_b=db, rel_pose=rel, pos_cov=pc, yaw_cov=yc,
+                                    inliers=inl), broadcast=False)
+
+    def _loop_slot(self, drone_id: int, frame_id: int) -> Optional[int]:
+        return self._pgo_slot.get((drone_id, frame_id))
+
+    def nearby_drones(self, now: float) -> set:
+        """Drones within near-field range by the pose graph's positions
+        (reference getNearbyDronesbyPGOData, d2estimator.cpp:931-976: the
+        PGO -> VIO feedback that gates the lazy broadcast's escalation)."""
+        if self.odometry is None or self._pgo_poses is None:
+            return set()
+        with self._pgo_lock:
+            positions = {d: (self._pgo_poses[slot][:3].copy(), self._pgo_meta[slot][2])
+                         for d, slot in self._last_kf_of.items() if d != self.drone_id}
+        return nearby_drones_from_pgo(
+            np.asarray(self.odometry.pose[:3]), positions, now,
+            distance=self.sys.nearby_distance, max_age=self.sys.nearby_max_age)
 
     def solve_pgo(self) -> Optional[np.ndarray]:
         """One PGO update over the accumulated graph. Returns optimized
@@ -614,8 +910,8 @@ class D2SLAMSystem:
     def _usable_loops(self) -> List[Tuple[int, int, LoopEdge]]:
         out = []
         for e in self.loop_edges:
-            sa = self._pgo_slot.get((e.drone_id_a, e.frame_id_a))
-            sb = self._pgo_slot.get((e.drone_id_b, e.frame_id_b))
+            sa = self._loop_slot(e.drone_id_a, e.frame_id_a)
+            sb = self._loop_slot(e.drone_id_b, e.frame_id_b)
             if sa is not None and sb is not None:
                 out.append((sa, sb, e))
         return out

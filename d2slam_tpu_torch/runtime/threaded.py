@@ -67,6 +67,11 @@ class PipelinedSystem:
     replay)."""
 
     def __init__(self, system, depth: int = 2, drop_oldest: bool = False):
+        if getattr(system, "loopnet", None) is not None:
+            # polling the transport on the caller thread would race the
+            # backend's swarm and pose-graph updates
+            raise NotImplementedError("PipelinedSystem over a system with a transport: drive "
+                                      "the swarm serially (input_* and poll_network)")
         self.sys = system
         self.depth = depth
         self.drop_oldest = drop_oldest

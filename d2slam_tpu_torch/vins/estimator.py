@@ -35,6 +35,7 @@ import torch
 
 from d2slam_tpu_torch.config import D2Config
 from d2slam_tpu_torch.factors.residuals import imu_sqrt_info
+from d2slam_tpu_torch.geometry import lie
 from d2slam_tpu_torch.imu.buffer import IMUBuffer
 from d2slam_tpu_torch.imu.preintegration import (
     PreintegrationResult,
@@ -668,6 +669,62 @@ class D2Estimator:
         else:
             prev = self._pending_perm
             self._pending_perm = np.where(sm >= 0, prev[np.clip(sm, 0, None)], -1)
+
+    def move_all_poses(self, T: np.ndarray, drone_id: Optional[int] = None) -> None:
+        """Left-compose the rigid transform ``T`` [7] onto every window pose
+        (those of ``drone_id`` only, when given): the reference-frame shift
+        of a map merge (reference D2State::moveAllPoses, d2state.hpp:8-125,
+        and PriorFactor::moveByPose, prior_factor.cpp:92+).
+
+        Velocities rotate with ``T``, and so do FEJ states, the prior's
+        linearization point and the landmark positions anchored in moved
+        frames. The prior moves exactly: rotation tangents are local and
+        stay, position and velocity differences are world-frame, so those
+        prior columns are right-multiplied by R_T^T, on the prior's device.
+        ``T`` should be yaw-only (4-DoF), as the reference's map merge: a
+        full rotation would break the gravity alignment of the IMU factors.
+        """
+        T = np.asarray(T, np.float64)
+        R = np_lie.quat_to_rotmat(T[3:])
+        moved = [w for w, f in enumerate(self.frames)
+                 if drone_id is None or f.drone_id == drone_id
+                 or (f.drone_id < 0 and drone_id == self.cfg.self_id)]
+        if not moved:
+            return
+
+        def shift(poses, sb):
+            for w in moved:
+                poses[w] = np_lie.pose_compose(T, poses[w])
+                sb[w, :3] = R @ sb[w, :3]
+
+        poses = self._np(self.state.poses).astype(np.float64)
+        sb = self._np(self.state.sb).astype(np.float64)
+        shift(poses, sb)
+        self.state = self.state._replace(poses=self._t(poses), sb=self._t(sb))
+        shift(self.fej_poses, self.fej_sb)
+
+        if self._prior is not None:
+            prior = self.prior          # pending window shifts applied
+            self._pending_perm = None
+            lin = prior.lin
+            cols = torch.as_tensor(
+                [15 * w + c + k for w in moved for c in (0, 6) for k in range(3)],
+                device=prior.J.device)
+            Rt = torch.as_tensor(R.T, dtype=prior.J.dtype, device=prior.J.device)
+            J = prior.J.clone()
+            J[:, cols] = (J[:, cols].reshape(J.shape[0], -1, 3) @ Rt).reshape(J.shape[0], -1)
+            rows = torch.as_tensor(moved, device=lin.poses.device)
+            Tt = torch.as_tensor(T, dtype=lin.poses.dtype, device=lin.poses.device)
+            lp, ls = lin.poses.clone(), lin.sb.clone()
+            lp[rows] = lie.pose_compose(Tt.expand(len(moved), 7), lin.poses[rows])
+            ls[rows, :3] = ls[rows, :3] @ Rt.to(ls.dtype)
+            self._prior = prior._replace(J=J, lin=lin._replace(poses=lp, sb=ls))
+
+        # stored landmark positions anchored in moved frames
+        moved_fids = {self.frames[w].frame_id for w in moved}
+        for lm in self.lmanager.db.values():
+            if lm.obs and lm.anchor.frame_id in moved_fids and lm.position is not None:
+                lm.position = np_lie.pose_apply(T, lm.position)
 
     # ------------------------------------------------------------------
     # outputs

@@ -1,8 +1,10 @@
 """The JAX package's golden textured-room tests on the port
-(tests/test_golden_textured.py: ``test_golden_textured_vio`` and
-``test_golden_textured_quadcam``, with their pins of 0.18 m and 0.2 m),
-on the CPU, ``slow`` as the JAX ones are. ``chip_smoke.py`` phase j
-runs both on the card. The swarm case waits for the multi-robot slice.
+(tests/test_golden_textured.py: ``test_golden_textured_vio``,
+``test_golden_textured_quadcam`` and ``test_golden_textured_swarm``, with
+their pins: 0.18 m, 0.2 m; at least 3 inter-robot loops, the best with
+at least 50 inliers, and a joint RMSE under 0.35 m), on the CPU,
+``slow`` as the JAX ones are. ``chip_smoke.py`` phase j runs the first
+two on the card, phase m the swarm.
 
 Only public entry points: images and IMU in, trajectories out.
 """
@@ -22,12 +24,17 @@ from d2slam_tpu_torch.utils.render import TexturedRoom
 from d2slam_tpu_torch.utils.sim import CircleSim, quadcam_extrinsics
 from d2slam_tpu_torch.vins.estimator import D2Estimator
 
-SP_W = os.path.join(os.path.dirname(__file__), "..", "weights", "superpoint_synth.npz")
+WDIR = os.path.join(os.path.dirname(__file__), "..", "weights")
+SP_W = os.path.join(WDIR, "superpoint_synth.npz")
+NV_W = os.path.join(WDIR, "netvlad_synth.npz")
+SG_W = os.path.join(WDIR, "superglue_synth.npz")
 H, W = 240, 320
 FX = FY = 220.0
 CX, CY = W / 2, H / 2
 GOLDEN_TEXTURED_VIO_ATE = 0.18      # the JAX package's pins
 GOLDEN_TEXTURED_QUADCAM_ATE = 0.2
+GOLDEN_TEXTURED_SWARM_RMSE = 0.35
+GOLDEN_TEXTURED_SWARM_MIN_BEST_INLIERS = 50
 
 
 def _cfg(num_cams=2, lm_slots=128, meas=512):
@@ -110,3 +117,81 @@ def test_golden_textured_quadcam():
     assert n_kf >= 10
     rmse = float(np.sqrt(np.mean(np.square(errs))))
     assert rmse < GOLDEN_TEXTURED_QUADCAM_ATE, rmse
+
+
+@pytest.mark.slow
+def test_golden_textured_swarm():
+    """Two robots in one textured room on a ``LocalBus``, SuperGlue remote
+    with the shipped weights, NetVLAD: inter-robot loops from pixels with
+    dozens of PnP inliers, and a consistent joint map.
+
+    The pins hold the graph of the robot that merged into the other's
+    reference frame (robot 1), whose peer never changes world: the graph
+    the JAX test reads in the JAX package, where robot 0 verifies no
+    inter-robot loop itself and robot 1 is the first robot with an
+    alignment. Here both robots verify loops. Robot 0's graph chains
+    robot 1's keyframes across its merge with an ego edge holding the
+    jump, in both packages (ROADMAP Queue 3), and is printed:
+    tests/test_torch_image_witness.py::test_textured_swarm_beside_jax
+    sets it beside the JAX package's."""
+    from d2slam_tpu_torch.comm.transport import LocalBus
+    from d2slam_tpu_torch.frontend.loop_detector import LoopDetectorConfig
+
+    room = TexturedRoom(half=14.0, height=7.0, seed=3)
+    sims = [CircleSim(seed=7, baseline=0.2, n_landmarks=10, phase=0.0),
+            CircleSim(seed=7, baseline=0.2, n_landmarks=10, phase=0.3)]
+    sp_params = load_params(SP_W)
+    bus = LocalBus()
+    systems = []
+    for i, sim in enumerate(sims):
+        systems.append(D2SLAMSystem(
+            _cfg(), SystemConfig(drone_id=i, pgo_every_n_kf=100, netvlad_weights=NV_W,
+                                 enable_superglue_remote=True, superglue_weights=SG_W),
+            sim.ext, [PinholeParams.make(FX, FY, CX, CY) for _ in range(2)],
+            sp_params=sp_params, sp_cfg=SuperPointConfig(max_keypoints=300, threshold=0.008),
+            transport=bus.endpoint(i),
+            tracker_cfg=TrackerConfig(min_keyframe_parallax=4.0, search_radius=30.0),
+            loop_cfg=LoopDetectorConfig(gdesc_dim=1024, min_gap_frames=2, min_inliers=20,
+                                        min_match_per_dir=8, pnp_thresh=16.0 / 460.0),
+            frame_rate=sim.frame_hz, device="cpu"))
+    for s, sim in zip(systems, sims):
+        for (t, a, g) in sim.imu_samples(-0.3, 0.0):
+            s.input_imu(t, a, g)
+    t_prev = 0.0
+    for k in range(26):
+        t = k / sims[0].frame_hz
+        for s, sim in zip(systems, sims):
+            if k > 0:
+                for (ts, a, g) in sim.imu_samples(t_prev + 1e-6, t + 1e-6):
+                    s.input_imu(ts, a, g)
+            imgs = _render(room, sim.gt_pose(t)[0], sim.ext, t)
+            s.input_stereo(t, imgs[0], imgs[1])
+        t_prev = t
+        for s in systems:
+            s.poll_network(now=t)
+    for _ in range(3):
+        for s in systems:
+            s.poll_network(now=t_prev)
+
+    assert all(s.swarm.alignments for s in systems), "no inter-robot map alignment from images"
+    assert [s.ref_frame_id for s in systems] == [0, 0]
+    host = systems[1]
+    inter = [e for e in host.loop_edges if e.drone_id_a != e.drone_id_b]
+    assert len(inter) >= 3, f"only {len(inter)} inter-robot loops"
+    best = max(e.inliers for e in inter)
+    print(f"textured swarm: {len(inter)} inter loops, inliers {[e.inliers for e in inter]}")
+    assert best >= GOLDEN_TEXTURED_SWARM_MIN_BEST_INLIERS, best
+    rmse = {}
+    for s in systems:
+        s.solve_pgo()
+        stamps_s, ego_s = s.trajectory(drone_id=s.drone_id, optimized=False)
+        T = np_lie.pose_compose(sims[s.drone_id].gt_pose(stamps_s[0])[0],
+                                np_lie.pose_inverse(ego_s[0]))
+        other = 1 - s.drone_id
+        stamps_o, opt_o = s.trajectory(drone_id=other)
+        assert len(stamps_o) >= 8
+        errs = [np.linalg.norm(np_lie.pose_compose(T, p)[:3] - sims[other].gt_pose(st)[0][:3])
+                for st, p in zip(stamps_o, opt_o)]
+        rmse[s.drone_id] = float(np.sqrt(np.mean(np.square(errs))))
+    print(f"textured swarm joint RMSE {rmse[1]:.3f} m (robot 0's graph: {rmse[0]:.3f} m)")
+    assert rmse[1] < GOLDEN_TEXTURED_SWARM_RMSE, rmse

@@ -14,8 +14,9 @@ the CPU.
   ``netvlad_apply`` on that frame's left image; each landmark enters a
   keyframe's entry once; the PGO runs on the background worker
   (``pgo_async``).
-* The modes not ported yet raise ``NotImplementedError``; without a card
-  the system needs ``device="cpu"``.
+* The modes not ported yet (the multi-robot estimators, DPGO) raise
+  ``NotImplementedError``; SuperGlue and a transport run a few frames;
+  without a card the system needs ``device="cpu"``.
 """
 import os
 
@@ -223,18 +224,63 @@ def test_tracker_extract_fn_replaces_superpoint():
     assert len(ff.observations[1].landmark_ids) == 30   # every left point found on the right
 
 
+def oracle_stereo_run(n_frames=6, transports=(None,), loop_cfg=None, img=None, **sys_kw):
+    """Port systems on CircleSim stereo frames with oracle 256-d features
+    (one system per transport, frame by frame, each polling after every
+    frame; the oracle ignores the images, ``img`` for both views, zeros by
+    default). Returns the systems."""
+    from d2slam_tpu_torch.config import D2Config
+    from d2slam_tpu_torch.frontend.tracker import TrackerConfig
+    from d2slam_tpu_torch.geometry.cameras import PinholeParams
+    from d2slam_tpu_torch.runtime.system import D2SLAMSystem, SystemConfig
+    from d2slam_tpu_torch.utils.oracle import OracleExtractor
+    from d2slam_tpu_torch.utils.sim import CircleSim
+
+    H, W, F = 120, 160, 110.0
+    sims = [CircleSim(seed=5, n_landmarks=200, phase=0.1 * i) for i in range(len(transports))]
+    systems, oracles = [], []
+    for i, (sim, tr) in enumerate(zip(sims, transports)):
+        cfg = small_config(D2Config)
+        cfg.estimator.focal_length = F
+        oracles.append(OracleExtractor(sim.lms, sim.ext, F, F, W / 2, H / 2, (H, W),
+                                       max_keypoints=64, desc_dim=256))
+        systems.append(D2SLAMSystem(
+            cfg, SystemConfig(drone_id=i, pgo_every_n_kf=3, **sys_kw), sim.ext,
+            [PinholeParams.make(F, F, W / 2, H / 2)] * 2, extract_fn=oracles[-1],
+            tracker_cfg=TrackerConfig(min_keyframe_parallax=0.0, search_radius=30.0),
+            loop_cfg=loop_cfg, transport=tr, frame_rate=sim.frame_hz, device="cpu"))
+    for s, sim in zip(systems, sims):
+        for (t, a, g) in sim.imu_samples(-0.3, 0.0):
+            s.input_imu(t, a, g)
+    if img is None:
+        img = np.zeros((H, W), np.float32)
+    t_prev = 0.0
+    for k in range(n_frames):
+        t = k / sims[0].frame_hz
+        for s, sim, oracle in zip(systems, sims, oracles):
+            if k:
+                for (ts, a, g) in sim.imu_samples(t_prev + 1e-6, t + 1e-6):
+                    s.input_imu(ts, a, g)
+            oracle.set_pose(sim.gt_pose(t)[0])
+            s.input_stereo(t, img, img)
+        t_prev = t
+        for s in systems:
+            s.poll_network(now=t)
+    return systems
+
+
 @pytest.mark.parametrize("change", [
     dict(estimation_mode="distributed"), dict(estimation_mode="server"), dict(enable_dpgo=True),
     dict(enable_superglue_local=True), dict(enable_superglue_remote=True), "transport",
     "input_rgbd"])
 def test_modes_not_ported_raise(change):
+    """The multi-robot estimators and DPGO raise; the cases ported since
+    (RGB-D; SuperGlue local and remote and a transport, this slice) build
+    on the CPU and run a few frames."""
     from d2slam_tpu_torch.config import D2Config
     from d2slam_tpu_torch.runtime.system import D2SLAMSystem, SystemConfig
     from d2slam_tpu_torch.utils.sim import default_extrinsics
 
-    kw = change if isinstance(change, dict) else {}
-    args = (D2Config(), SystemConfig(**kw), default_extrinsics(), None)
-    extra = dict(extract_fn=lambda img, cam: None, device="cpu")
     if change == "input_rgbd":
         # ported: the RGB-D path returns odometry (its parity with the
         # JAX package is tests/test_torch_rgbd.py)
@@ -244,9 +290,36 @@ def test_modes_not_ported_raise(change):
         assert len(stamps) >= 5 and np.isfinite(poses).all()
         return
     if change == "transport":
-        extra["transport"] = object()
-    with pytest.raises(NotImplementedError):
-        D2SLAMSystem(*args, **extra)
+        # ported: two robots on a LocalBus hear each other's keyframes
+        # (the swarm's parity is tests/test_torch_swarm.py)
+        from d2slam_tpu_torch.comm.transport import LocalBus
+
+        bus = LocalBus()
+        systems = oracle_stereo_run(transports=(bus.endpoint(0), bus.endpoint(1)))
+        for s, peer in zip(systems, (1, 0)):
+            assert s.estimator.initialized and len(s.swarm.remote_trajs[peer]) >= 3
+            assert len(s.trajectory(drone_id=peer, optimized=False)[0]) >= 3
+            assert not s.remote_images   # send_img is off
+        return
+    if change.get("enable_superglue_local") or change.get("enable_superglue_remote"):
+        # ported: the shipped compact SuperGlue matches the tracker's
+        # keyframe gaps (local) or the loop candidates (remote; the
+        # retrieval gate is opened so every keyframe is a candidate);
+        # parity with the JAX matcher is tests/test_torch_superglue.py
+        from d2slam_tpu_torch.frontend.loop_detector import LoopDetectorConfig
+
+        loop_cfg = LoopDetectorConfig(desc_dim=256, gdesc_dim=1024, netvlad_thres=-1.0,
+                                      min_gap_frames=1)
+        (s,) = oracle_stereo_run(loop_cfg=loop_cfg, superglue_weights=os.path.join(
+            REPO, "weights", "superglue_synth.npz"), **change)
+        assert s.superglue is not None and s.superglue.cfg.num_layers == 3
+        assert s.superglue.calls >= 3 and s.estimator.initialized
+        assert (s.tracker.matcher_fn is not None) == bool(change.get("enable_superglue_local"))
+        assert (s.detector.matcher_fn is not None) == bool(change.get("enable_superglue_remote"))
+        return
+    with pytest.raises(NotImplementedError, match="multi-robot slice"):
+        D2SLAMSystem(D2Config(), SystemConfig(**change), default_extrinsics(), None,
+                     extract_fn=lambda img, cam: None, device="cpu")
 
 
 def test_system_needs_a_card_or_cpu(monkeypatch):

@@ -19,7 +19,7 @@ the hand-written stem kernel is on the path:
       the bf16 backbone (stem kernel) and the f32 backbone: asserts the
       keyframe count, ATE < 0.03 m and the median track length;
   (c) the main path at full width: 480x640, the default estimator and
-      SuperPoint configurations, 16 frames;
+      SuperPoint configurations, 10 frames;
   (d) quadcam depth at full width: 4 Kannala-Brandt fisheyes 480x640
       around a textured cylinder wall -> 4 virtual stereo pairs 240x320
       -> block-matching kernel (max_disp 64, block 9) -> coloured point
@@ -44,7 +44,7 @@ the hand-written stem kernel is on the path:
       kernel launches per solve; and the batched PnP against the host
       path on the correspondences of one of (f)'s loop queries;
   (h) dataset replay at EuRoC's format: the scene of (c) at 480x752
-      (camera 20 Hz, IMU 200 Hz, 40 frames from rest) written once as an
+      (camera 20 Hz, IMU 200 Hz, 24 frames from rest) written once as an
       EuRoC-ASL directory and once as a ROS1 bag; (A) its uint8 frames
       fed serially to ``D2SLAMSystem.input_stereo``, (B)
       ``run_dataset_vio`` on the directory (native PNG prefetch, the
@@ -61,8 +61,7 @@ the hand-written stem kernel is on the path:
       package's golden textured scenarios at 240x320
       (tests/test_golden_textured.py: stereo ``D2SLAMSystem`` over 26
       frames, pin 0.18 m; the 4-view ring over 16 frames, pin 0.2 m)
-      with the tests' float32 backbone (the stereo one twice more with the
-      bf16 stem, printed with how far the two runs part); then ``D2SLAMSystem.input_stereo``
+      with the tests' float32 backbone; then ``D2SLAMSystem.input_stereo``
       at 480x640, bf16, with NetVLAD fused, loop detection and PGO over one lap
       and the revisit of its start; prints retrieval queries, loops
       verified and kept by PCM, the NetVLAD similarity of true revisits
@@ -70,7 +69,7 @@ the hand-written stem kernel is on the path:
       one stem launch per frame (PGO against VIO ATE is printed: there
       the loops' relative poses err as much as the odometry, so phase f
       keeps that gate);
-  (k) the estimator's options at full width, 16 frames each of (c)'s
+  (k) the estimator's options at full width, 12 frames each of (c)'s
       scene through ``D2SLAMSystem``: ``landmark_param="pos3d"`` and
       ``solver_method="dogleg"`` beside the default run
       (tests/test_pos3d.py's pins) and RGB-D through ``input_rgbd`` with
@@ -97,17 +96,34 @@ the hand-written stem kernel is on the path:
       frames each) with the test's float32 backbone, held to its pins (>= 3
       inter-robot loops, best >= 50 PnP inliers, joint RMSE < 0.35 m) on
       the graph the JAX package's run reads (robot 1's; robot 0's is
-      printed), and
-      once more with the bf16 stem (printed); then two robots at 480x640
+      printed); then two robots at 480x640
       in that room, bf16 stem, NetVLAD fused, SuperGlue local and remote,
       greedy broadcast, 20 frames each: asserts an inter-robot loop, an
       alignment, robot 1 merged into robot 0's reference frame, the joint
       PGO solved and one stem launch per frame per robot; prints SuperGlue
       ms per local match and per loop candidate and each robot's
-      estimator, PGO, loop and per-frame ms.
+      estimator, PGO, loop and per-frame ms;
+  (n) multi-robot estimation: (n.1) consensus ADMM with the robots as a
+      batch dimension, 4 robots at the default window (the circle scene of
+      ``make_circle_scene``, each robot perturbed by its own seeded draw),
+      4 rounds, and distributed PGO with rotation initialization on a
+      4-robot ring of 64 poses each, 8 rounds, each against the same calls
+      on the CPU and the PGO against the card's centralized dense solve,
+      with ms and launches per round; (n.2) the JAX package's slow
+      feature-level system scenarios (tests/test_system.py: server mode,
+      transport DPGO, distributed camera consensus with one thread per
+      robot) with their pins; (n.3) two robots at 480x640 in m.3's room,
+      bf16 stem, NetVLAD fused, SuperGlue on the loop candidates,
+      ``estimation_mode="distributed"`` with ``enable_dpgo``, 20 frames
+      each, one thread per robot, and a server node ingesting both robots'
+      packets: asserts the merge into robot 0's frame, both drones in each
+      window, shared consensus keys, duals both ways, the server returning
+      both drones, finite results and one stem launch per frame per robot;
+      prints ms per frame per robot, consensus ms per solve, DPGO ms and
+      launches per round and each robot's VIO error after alignment.
 
 The native pipeline library and LK are built with the kernels in (a).
-The launch counts of (c), (d), (e), (f), (h), (j), (k), (l) and (m) go
+The launch counts of (c), (d), (e), (f), (h), (j), (k), (l), (m) and (n) go
 into the ``kernels`` line: each count is set to 0 just before its path
 runs and read just after.
 
@@ -168,7 +184,14 @@ from d2slam_tpu_torch.depth.stereo import (  # noqa: E402
     points_from_disparity,
 )
 from d2slam_tpu_torch.ops import stereo_bm as bm  # noqa: E402
+from d2slam_tpu_torch.geometry.lie import pose_boxplus  # noqa: E402
+from d2slam_tpu_torch.parallel import ConsensusCarry, admm_vio_round  # noqa: E402
 from d2slam_tpu_torch.pgo import PGOEdges, PGOLayout, PGOState, solve_pgo, solve_pgo_pcg  # noqa: E402
+from d2slam_tpu_torch.pgo.distributed import (  # noqa: E402
+    ARockPGOCarry,
+    arock_pgo_round,
+    distributed_pgo_solve,
+)
 from d2slam_tpu_torch.runtime import pipeline  # noqa: E402
 from d2slam_tpu_torch.runtime.dataset_vio import run_dataset_vio  # noqa: E402
 from d2slam_tpu_torch.runtime.depth_replay import (  # noqa: E402
@@ -196,10 +219,16 @@ from d2slam_tpu_torch.utils.checkpoint import load_estimator, save_estimator  # 
 from d2slam_tpu_torch.utils.euroc_writer import write_euroc_dataset  # noqa: E402
 from d2slam_tpu_torch.utils.evaluation import ate_rmse  # noqa: E402
 from d2slam_tpu_torch.utils.synthetic import (  # noqa: E402
+    default_col_free,
+    make_circle_scene,
     replay_events,
     spiral_pose_graph,
     stereo_replay_sequence,
 )
+from d2slam_tpu_torch.solver.layout import VIOLayout  # noqa: E402
+from d2slam_tpu_torch.solver.marginalization import make_pose_prior  # noqa: E402
+from d2slam_tpu_torch.solver.state import tree_map  # noqa: E402
+from d2slam_tpu_torch.vins.types import global_frame_id  # noqa: E402
 from d2slam_tpu_torch.vins.estimator import D2Estimator  # noqa: E402
 from d2slam_tpu_torch.vins.initialization import solve_relative_pose  # noqa: E402
 
@@ -232,6 +261,8 @@ WALL_RADIUS, WALL_DEPTH_RANGE = 5.0, (3.0, 7.5)
 # at most (m); phase g: card and CPU solves agree on the final cost
 PGO_ATE_SLACK = 0.02
 PGO_COST_RTOL = 1e-3
+# phase c: frames at full width
+FULL_WIDTH_FRAMES = 10
 # phase f: one lap of the circle and the first 17 places again. After
 # CircleSim's 1 s speed ramp a lap takes 108.6 frames (omega 0.5 rad/s at
 # 8 Hz); frames 109-125 revisit the places of frames 3-24 within
@@ -243,11 +274,11 @@ SYSTEM_FRAMES = 126
 # two views of one place, about half of them right (a CPU count against
 # the rendered ground truth, at 0.1-1.2 degrees apart)
 LOOP_CFG = dict(min_match_per_dir=8, min_inliers=8)
-# phase h: EuRoC's image size, camera and IMU rates; 40 frames from rest.
+# phase h: EuRoC's image size, camera and IMU rates; 24 frames from rest.
 # Gates fixed before the first run: (B) against (A) on the keyframes'
 # positions (m) and their loop-database descriptors, (B)'s ATE (m)
 EUROC_H, EUROC_W, EUROC_FX = 480, 752, 440.0
-DATASET_FRAMES, DATASET_CAM_HZ, DATASET_IMU_HZ = 40, 20.0, 200
+DATASET_FRAMES, DATASET_CAM_HZ, DATASET_IMU_HZ = 24, 20.0, 200
 DATASET_POS_ATOL, DATASET_GDESC_ATOL, DATASET_ATE = 1e-3, 1e-5, 0.05
 # phase i: tests/test_estimator.py::test_dynamic_start_sfm_init's pins
 DYN_FRAMES, DYN_MIN_OUT, DYN_SPEED, DYN_SPEED_TOL, DYN_ATE = 16, 8, 2.5, 0.3, 0.25
@@ -257,12 +288,12 @@ REL_POSE_ROT_TOL = 1e-3
 # goes round the lap of phase f in the textured room of the golden test
 TEXTURED_VIO_ATE, TEXTURED_QUADCAM_ATE = 0.18, 0.2
 TEXTURED_FRAMES = SYSTEM_FRAMES
-# phase k: 16 frames per option; pins of tests/test_pos3d.py (ATE and
+# phase k: 12 frames per option; pins of tests/test_pos3d.py (ATE and
 # its distance to the default run's, m), tests/test_online_calib.py
 # (rotation and translation error left of the perturbation, td error
 # as a share of the delay) and tests/test_tracker.py's RGB-D test
 # (depth-carrying keypoints, a depth equal to a landmark's z within)
-OPTION_FRAMES = 16
+OPTION_FRAMES = 12
 OPTION_ATE, OPTION_ATE_GAP = 0.03, 0.03
 CALIB_ROT_SHARE, CALIB_TRANS_SHARE, CALIB_TD, CALIB_TD_SHARE = 0.35, 0.6, 0.008, 0.35
 RGBD_MIN_DEPTHS, RGBD_DEPTH_TOL = 20, 1e-6
@@ -284,6 +315,21 @@ SUPERGLUE_WEIGHTS = os.path.join(REPO, "weights", "superglue_synth.npz")
 SWARM_GOLDEN_FRAMES, SWARM_FULL_FRAMES = 26, 20
 SWARM_MIN_INTER_LOOPS, SWARM_MIN_BEST_INLIERS, SWARM_JOINT_RMSE = 3, 50, 0.35
 SG_LOGP_TOL, SG_MIN_EQUAL_MATCHES = 1e-5, 0.98
+# phase n: consensus ADMM over 4 robots at the default window (4 rounds)
+# and distributed PGO on the 4-robot ring of 64 poses each (8 rounds),
+# card against CPU (float64 both, the same LM decisions) within
+# N_CARD_CPU_TOL (m / rad / quaternion units); the distributed PGO
+# within N_DPGO_CENTRAL_TOL of the card's centralized dense solve
+# (tests/test_pcm_distributed.py's pin); the feature-level system
+# scenarios' pins (tests/test_system.py): server against each drone's
+# own VIO and its ATE, DPGO shared poses and median disagreement,
+# distributed drone 1's error; the full-width run's frames per robot
+N_ROBOTS, N_ADMM_ROUNDS, N_DPGO_PER, N_DPGO_ROUNDS = 4, 4, 64, 8
+N_CARD_CPU_TOL, N_DPGO_CENTRAL_TOL = 1e-6, 0.15
+N_SERVER_VS_OWN, N_SERVER_ATE = 0.5, 0.25
+N_DPGO_MIN_SHARED, N_DPGO_MEDIAN = 10, 0.25
+N_DIST_ERR_B = 0.6
+N_FULL_FRAMES = 20
 
 
 def fail(msg):
@@ -586,15 +632,20 @@ def profile_estimator(est, ff):
 
 
 def count_launches(fn):
-    """Kernel launches of one ``fn()`` under torch.profiler."""
+    """Kernel launches of one ``fn()`` under torch.profiler, counted on
+    the profiler's raw events (``key_averages`` would first build an event
+    tree, seconds for a call of tens of thousands of launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in p.key_averages()
-               if e.key.startswith(("cudaLaunch", "cuLaunch")))
+    raw = getattr(p.profiler, "kineto_results", None)
+    if raw is None:
+        return sum(e.count for e in p.key_averages()
+                   if e.key.startswith(("cudaLaunch", "cuLaunch")))
+    return sum(1 for e in raw.events() if e.name().startswith(("cudaLaunch", "cuLaunch")))
 
 
 def trajectory_ate(stamps, poses, sim):
@@ -1281,23 +1332,16 @@ def textured_golden_quadcam(params, dev):
 
 def phase_textured(params, dev):
     """(j) the golden textured scenarios with the JAX tests' float32
-    backbone (held to their pins); the stereo one twice more with the
-    bf16 stem kernel (printed: how far two runs of one input part on the
-    card); then the system with loops at full width in the textured
-    room (bf16, the stem kernel's path)."""
+    backbone (held to their pins); then the system with loops at full
+    width in the textured room (bf16, the stem kernel's path)."""
     vio = textured_golden_vio(params, dev)
     quad = textured_golden_quadcam(params, dev)
-    bf16 = [textured_golden_vio(params, dev, "bfloat16") for _ in range(2)]
-    spread = float(np.abs(bf16[0]["poses"] - bf16[1]["poses"]).max()) if (
-        bf16[0]["poses"].shape == bf16[1]["poses"].shape) else float("nan")
     sim = CircleSim(seed=11, baseline=0.2, n_landmarks=10)
     room = TexturedRoom(half=14.0, height=7.0, seed=3)
     full, pnp_args = run_system(params, dev, 480, 640, 440.0, TEXTURED_FRAMES, sim=sim,
                                 render=room_views(room, sim.ext, 480, 640, 440.0))
-    for r in [vio] + bf16:
-        r.pop("poses")
-    res = dict(golden_vio=vio, golden_quadcam=quad, golden_vio_bf16=bf16,
-               golden_vio_bf16_runs_max_pose_diff=spread, system_480x640=full)
+    vio.pop("poses")
+    res = dict(golden_vio=vio, golden_quadcam=quad, system_480x640=full)
     print("phase j (textured room: golden 240x320 stereo and quadcam, stereo with the bf16 "
           "stem, system 480x640 with loops): " + json.dumps(res), flush=True)
     if (vio["keyframes"] < 15 or not vio["ate_m"] < TEXTURED_VIO_ATE
@@ -1311,9 +1355,8 @@ def phase_textured(params, dev):
     # Phase f holds the gate on its blob lap.
     if not full["finite"] or full["pgo_solves"] < 2 or full["loops_kept_by_pcm"] < 1:
         fail(f"textured-room system out of its pins: {full}")
-    for r in bf16 + [full]:
-        if r["stem_launches"] != r["frames"]:
-            fail(f"phase j: stem launches {r['stem_launches']} != frames {r['frames']}")
+    if full["stem_launches"] != full["frames"]:
+        fail(f"phase j: stem launches {full['stem_launches']} != frames {full['frames']}")
     return res, pnp_args
 
 
@@ -1475,7 +1518,7 @@ def calibration_tests(dev):
     return dict(extrinsic=ext, td=td)
 
 
-def calibration_from_images(params, dev, mode, H=480, W=640, fx=440.0, n_frames=16):
+def calibration_from_images(params, dev, mode, H=480, W=640, fx=440.0, n_frames=12):
     """(k) tests/test_online_calib.py's recovery runs from rendered blob
     images through ``D2SLAMSystem`` (bf16 stem): ``mode`` "extrinsic"
     (the perturbed extrinsics given to the system) or "td" (the images
@@ -1559,7 +1602,7 @@ def phase_options(params, dev):
     runs["calibration_tests"] = calib = calibration_tests(dev)
     runs["calibration_from_images"] = {m: calibration_from_images(params, dev, m)
                                        for m in ("extrinsic", "td")}
-    print("phase k (estimator options at 480x640, 16 frames each; the calibration tests "
+    print(f"phase k (estimator options at 480x640, {OPTION_FRAMES} frames each; the calibration tests "
           "on their oracle inputs, gated, and from images at 480x640, printed): "
           + json.dumps(runs), flush=True)
     base = runs["default"]["ate_m"]
@@ -1842,15 +1885,13 @@ def swarm_run(params, dev, H, W, fx, n_frames, compute_dtype, superglue_local=Fa
 def phase_swarm(params, dev):
     """(m) the swarm on the card: SuperGlue alone (m.1); the JAX golden
     textured swarm at 240x320 with the test's float32 backbone, gated by
-    its pins, and once more with the bf16 stem, printed (m.2); two robots
-    at 480x640 with the bf16 stem, SuperGlue local and remote (m.3)."""
+    its pins (m.2); two robots at 480x640 with the bf16 stem, SuperGlue
+    local and remote (m.3)."""
     alone = superglue_alone(dev)
     golden, _ = swarm_run(params, dev, 240, 320, 220.0, SWARM_GOLDEN_FRAMES, "float32")
-    golden_bf16, _ = swarm_run(params, dev, 240, 320, 220.0, SWARM_GOLDEN_FRAMES, "bfloat16")
     full, systems = swarm_run(params, dev, 480, 640, 440.0, SWARM_FULL_FRAMES, "bfloat16",
                               superglue_local=True)
-    res = dict(superglue=alone, golden_textured_swarm_f32=golden,
-               golden_textured_swarm_bf16=golden_bf16, swarm_480x640=full)
+    res = dict(superglue=alone, golden_textured_swarm_f32=golden, swarm_480x640=full)
     print("phase m (swarm: SuperGlue alone, golden textured swarm 240x320, two robots "
           "480x640 with SuperGlue local and remote): " + json.dumps(res), flush=True)
     if not (golden["aligned"] and golden["inter_loops"] >= SWARM_MIN_INTER_LOOPS
@@ -1864,11 +1905,517 @@ def phase_swarm(params, dev):
             and any(r["pgo_solves"] >= 1 for r in full["robots"])
             and [s.drone_id for s in merged] == [1]):
         fail(f"480x640 swarm did not align, merge and solve: {full}")
-    for r in (golden_bf16, full):
-        if r["stem_launches"] != 2 * r["frames_per_robot"]:
-            fail(f"phase m: stem launches {r['stem_launches']} != 2 robots x "
-                 f"{r['frames_per_robot']} frames")
+    if full["stem_launches"] != 2 * full["frames_per_robot"]:
+        fail(f"phase m: stem launches {full['stem_launches']} != 2 robots x "
+             f"{full['frames_per_robot']} frames")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase n: multi-robot estimation and distributed PGO
+# ---------------------------------------------------------------------------
+
+
+def robot_spread(poses):
+    """Largest deviation of [R, ..., 7] pose copies from their mean, the
+    quaternions first put on robot 0's hemisphere (q and -q are one
+    rotation)."""
+    p = np.array(poses, np.float64)
+    flip = np.sum(p[..., 3:] * p[:1, ..., 3:], axis=-1, keepdims=True) < 0
+    p[..., 3:] = np.where(flip, -p[..., 3:], p[..., 3:])
+    return float(np.abs(p - p.mean(axis=0, keepdims=True)).max())
+
+
+def quat_aligned_diff(a, b):
+    """max |a - b| over [..., 7] poses, a's quaternions on b's hemisphere."""
+    a, b = np.array(a, np.float64), np.asarray(b, np.float64)
+    flip = np.sum(a[..., 3:] * b[..., 3:], axis=-1, keepdims=True) < 0
+    a[..., 3:] = np.where(flip, -a[..., 3:], a[..., 3:])
+    return float(np.abs(a - b).max())
+
+
+def admm_setup(dev):
+    """__graft_entry__.py's consensus set-up at the default ``D2Config``
+    window (11 frames, 256 landmark slots, 1000 measurements): the circle
+    scene of ``make_circle_scene`` (200 landmarks, 8 Hz keyframes, 0.5 px
+    noise), float64, each robot's poses perturbed by its own seeded draw
+    (0.01 per tangent component), the first frame's stiff prior."""
+    e = D2Config().estimator
+    layout = VIOLayout(W=e.max_sld_win_size, C=2, L=e.max_lm_slots, M=e.max_solve_measurements,
+                       N_IMU_SAMPLES=e.max_imu_samples)
+    scene = make_circle_scene(layout, n_frames=layout.W, n_landmarks=200, dt_frame=0.125,
+                              pix_noise_rad=0.5 / 460.0, device=dev)
+    gt = scene["gt_state"]
+    rng = np.random.default_rng(0)
+    d = torch.as_tensor(rng.normal(0, 0.01, (N_ROBOTS, layout.W, 6)), device=dev)
+    state = tree_map(lambda x: torch.stack([x] * N_ROBOTS), gt)
+    state = state._replace(poses=pose_boxplus(state.poses, d))
+    kw = dict(est_mask=torch.ones((N_ROBOTS, layout.W), dtype=torch.bool, device=dev),
+              gravity=scene["gravity"], col_free=default_col_free(layout, gt, fix_first_pose=False),
+              proj_sqrt_info=460.0 / 1.5, rho_T=1e3, rho_theta=1e3, max_iters=2)
+    carry = ConsensusCarry(state=state, tilde=torch.zeros((N_ROBOTS, layout.W, 6),
+                                                          dtype=torch.float64, device=dev))
+    return layout, scene, make_pose_prior(layout, gt, frame=0), carry, kw
+
+
+def admm_rounds(dev, timed):
+    t0 = time.perf_counter()
+    layout, scene, prior, carry, kw = admm_setup(dev)
+    setup_s = time.perf_counter() - t0
+    spreads, poses, ms = [robot_spread(carry.state.poses.cpu().numpy())], [], []
+    for _ in range(N_ADMM_ROUNDS):
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, _ = admm_vio_round(layout, carry, scene["imu"], scene["proj"], prior, **kw)
+        p = carry.state.poses.cpu().numpy()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        poses.append(p)
+        spreads.append(robot_spread(p))
+    t0 = time.perf_counter()
+    launches = (count_launches(lambda: admm_vio_round(layout, carry, scene["imu"], scene["proj"],
+                                                      prior, **kw)) if timed else None)
+    return dict(spreads=spreads, ms_per_round=ms, launches_per_round=launches, setup_s=setup_s,
+                count_s=time.perf_counter() - t0), poses
+
+
+def ring_setup(dev, n_per=N_DPGO_PER):
+    """__graft_entry__.py:139's partitioned ring for 4 robots: robot r owns
+    poses [r*n_per, (r+1)*n_per), the odometry ring's edges are owned by
+    their first pose's robot, every robot estimates the whole graph from
+    its own drifted guess (0.3 m per position), float64."""
+    R, n = N_ROBOTS, N_ROBOTS * n_per
+    N_pad = max(16, 1 << (n - 1).bit_length())
+    th = 2 * np.pi * np.arange(n) / n
+    gt = np.zeros((n, 7))
+    gt[:, 0], gt[:, 1] = 10 * np.cos(th), 10 * np.sin(th)
+    gt[:, 5], gt[:, 6] = np.sin(th / 2 + np.pi / 4), np.cos(th / 2 + np.pi / 4)
+    ei = np.arange(n)
+    ej = (ei + 1) % n
+    rel = np.stack([np_lie.pose_compose(np_lie.pose_inverse(gt[a]), gt[b]) for a, b in zip(ei, ej)])
+    E_pad = max(16, 1 << (n - 1).bit_length())
+    pad = np.tile([0, 0, 0, 0, 0, 0, 1.0], (E_pad, 1))
+    pad[:n] = rel
+    t = lambda x, dt=None: torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+    edges = PGOEdges(i=t(np.pad(ei, (0, E_pad - n))), j=t(np.pad(ej, (0, E_pad - n))),
+                     rel=t(pad), sqrt_info=t(np.tile(np.eye(6), (E_pad, 1, 1))),
+                     valid=t(np.arange(E_pad) < n))
+    edge_mask = np.zeros((R, E_pad), bool)
+    edge_mask[ei // n_per, np.arange(n)] = True
+    rng = np.random.default_rng(1)
+    poses = np.tile([0, 0, 0, 0, 0, 0, 1.0], (R, N_pad, 1))
+    for r in range(R):
+        poses[r, :n] = gt
+        poses[r, 1:n, :3] += rng.normal(0, 0.3, (n - 1, 3))
+    est = np.zeros((R, N_pad), bool)
+    est[:, :n] = True
+    own = np.zeros((R, N_pad), bool)
+    for r in range(R):
+        own[r, r * n_per:(r + 1) * n_per] = True
+    fixed = np.zeros(N_pad, bool)
+    fixed[0] = True
+    return (PGOLayout(N_pad, E_pad, 6), PGOState(t(poses), t(np.arange(N_pad) < n)), edges,
+            dict(est_mask=t(est), own_mask=t(own), fixed_mask=t(fixed), edge_mask=t(edge_mask)),
+            own, n)
+
+
+def dpgo_rounds(dev, timed):
+    layout, state, edges, masks, own, n = ring_setup(dev)
+    kw = dict(eta=0.9, rho=1.0, max_iters=3)
+    if timed:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = distributed_pgo_solve(layout, state, edges, rounds=0, **masks)
+    init_ms = (time.perf_counter() - t0) * 1e3
+    carry = ARockPGOCarry(state, torch.zeros((N_ROBOTS, layout.N, 6), dtype=torch.float64,
+                                             device=dev))
+    spreads, ms = [robot_spread(state.poses[:, :n].cpu().numpy())], []
+    for _ in range(N_DPGO_ROUNDS):
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, _ = arock_pgo_round(layout, carry, edges, **masks, **kw)
+        p = carry.state.poses[:, :n].cpu().numpy()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        spreads.append(robot_spread(p))
+    launches = (count_launches(lambda: arock_pgo_round(layout, carry, edges, **masks, **kw))
+                if timed else None)
+    out = dict(rot_init_ms=init_ms, ms_per_round=ms, launches_per_round=launches,
+               spreads=spreads, poses=int(layout.N))
+    return out, carry.state.poses.cpu().numpy(), (layout, state, edges, masks, own, n)
+
+
+def phase_multirobot_batched(dev):
+    """(n.1) consensus ADMM and distributed PGO with the robots batched on
+    the card, each against the same calls on the CPU."""
+    t0 = time.perf_counter()
+    admm, admm_poses = admm_rounds(dev, timed=True)
+    t1 = time.perf_counter()
+    _, cpu_poses = admm_rounds(torch.device("cpu"), timed=False)
+    admm.update(card_wall_s=t1 - t0, cpu_wall_s=time.perf_counter() - t1)
+    admm["card_vs_cpu"] = max(quat_aligned_diff(a, b) for a, b in zip(admm_poses, cpu_poses))
+    t0 = time.perf_counter()
+    dpgo, card, (layout, init, edges, masks, own, n) = dpgo_rounds(dev, timed=True)
+    t1 = time.perf_counter()
+    _, cpu, _ = dpgo_rounds(torch.device("cpu"), timed=False)
+    dpgo.update(card_wall_s=t1 - t0, cpu_wall_s=time.perf_counter() - t1)
+    dpgo["card_vs_cpu"] = quat_aligned_diff(card[:, :n], cpu[:, :n])
+    central, _ = solve_pgo(layout, PGOState(init.poses[0], init.valid), edges,
+                           masks["fixed_mask"], max_iters=12, device=dev)
+    cen = central.poses.cpu().numpy()
+    dev_c = [np.abs(np_lie_boxminus(card[r, k], cen[k])).max()
+             for r in range(N_ROBOTS) for k in np.flatnonzero(own[r])]
+    dpgo["max_dev_from_centralized"] = float(max(dev_c))
+    res = dict(admm_vio=admm, dpgo=dpgo)
+    print("phase n.1 (consensus ADMM, 4 robots at the default window; distributed PGO, "
+          f"4 x {N_DPGO_PER} poses): " + json.dumps(res), flush=True)
+    # the rotation initialization's average leaves the DPGO copies equal;
+    # its first ARock round parts them by the robots' edge splits, and
+    # every round after must bring them closer
+    for what, sp in (("consensus", admm["spreads"]), ("DPGO", dpgo["spreads"][1:])):
+        if not all(b < a for a, b in zip(sp, sp[1:])):
+            fail(f"{what} spread did not decrease every round: {sp}")
+    if not (admm["card_vs_cpu"] <= N_CARD_CPU_TOL and dpgo["card_vs_cpu"] <= N_CARD_CPU_TOL):
+        fail(f"card and CPU disagree: {admm['card_vs_cpu']}, {dpgo['card_vs_cpu']}")
+    if not dpgo["max_dev_from_centralized"] < N_DPGO_CENTRAL_TOL:
+        fail(f"distributed PGO off the centralized solve: {dpgo['max_dev_from_centralized']}")
+    return res
+
+
+def np_lie_boxminus(a, b):
+    """Tangent difference [dp, dtheta] of two poses (host)."""
+    dq = np_lie.quat_mul(np_lie.quat_conj(b[3:] / np.linalg.norm(b[3:])),
+                         a[3:] / np.linalg.norm(a[3:]))
+    return np.concatenate([a[:3] - b[:3], np_lie.quat_log(dq)])
+
+
+# tests/test_system.py's feature-level oracle: seeded descriptor and
+# bag-of-landmark global descriptor tables
+FEAT_DESC_DIM, FEAT_GDESC_DIM, FEAT_N_LM = 64, 256, 300
+_feat_rng = np.random.default_rng(7)
+FEAT_DESC = _feat_rng.normal(0, 1, (FEAT_N_LM, FEAT_DESC_DIM)).astype(np.float32)
+FEAT_DESC /= np.linalg.norm(FEAT_DESC, axis=1, keepdims=True)
+FEAT_GVEC = _feat_rng.normal(0, 1, (FEAT_N_LM, FEAT_GDESC_DIM)).astype(np.float32)
+
+
+def feature_system(dev, drone_id, sim, transport, **sys_kw):
+    """tests/test_system.py::make_system on the card (feature-level)."""
+    cfg = golden_config()
+    cfg.estimator.focal_length = 460.0
+    kw = dict(pgo_every_n_kf=6, pgo_max_poses=64, pgo_max_edges=128, pgo_iters=6)
+    kw.update(sys_kw)
+    return D2SLAMSystem(
+        cfg, SystemConfig(drone_id=drone_id, **kw), sim.ext, cameras=None,
+        extract_fn=lambda img, cam: None, transport=transport,
+        loop_cfg=LoopDetectorConfig(desc_dim=FEAT_DESC_DIM, gdesc_dim=FEAT_GDESC_DIM,
+                                    netvlad_thres=0.5, min_match_per_dir=10, min_inliers=12,
+                                    min_gap_frames=6),
+        device=dev)
+
+
+def feature_frame(s, sim, k, t_prev):
+    """IMU since ``t_prev`` and CircleSim frame ``k`` with its cam0 entry
+    and bag-of-landmark descriptor; returns the frame's stamp."""
+    t = k / sim.frame_hz
+    span = (-0.3, 0.0) if k == 0 else (t_prev + 1e-6, t + 1e-6)
+    for (ts, a, g) in sim.imu_samples(*span):
+        s.input_imu(ts, a, g)
+    ff = sim.frame(k)
+    ids = np.asarray(ff.observations[0].landmark_ids, int)
+    g = FEAT_GVEC[ids].sum(axis=0)
+    pose = s.odometry.pose if s.odometry is not None else np.eye(1, 7, 6)[0]
+    entry = loop_detector.KeyframeEntry(
+        frame_id=ff.frame_id, drone_id=s.drone_id, stamp=ff.stamp,
+        pose=np.asarray(pose, np.float64), kpt_rays=np.asarray(ff.observations[0].rays, np.float64),
+        kpt_cam=np.zeros(len(ids), np.int32), kpt_desc=FEAT_DESC[ids],
+        kpt_valid=np.ones(len(ids), bool), lm_positions=np.full((len(ids), 3), np.nan))
+    s.input_frame(ff, gdesc=(g / max(np.linalg.norm(g), 1e-12)).astype(np.float32),
+                  kf_entry=entry)
+    return t
+
+
+def feature_sims():
+    return (CircleSim(n_landmarks=FEAT_N_LM, seed=3, phase=0.0),
+            CircleSim(n_landmarks=FEAT_N_LM, seed=3, phase=0.25))
+
+
+def feature_server(dev):
+    """tests/test_system.py::test_server_estimation_mode on the card."""
+    bus = LocalBus()
+    sim_a, sim_b = feature_sims()
+    robots = [feature_system(dev, i, sim, bus.endpoint(i), assume_common_world=True)
+              for i, sim in enumerate((sim_a, sim_b))]
+    server = feature_system(dev, 9, sim_a, bus.endpoint(9), estimation_mode="server",
+                            max_drones=2, assume_common_world=True, broadcast=False)
+    t0, t_prev, solve_ms = time.perf_counter(), 0.0, []
+    for k in range(14):
+        for s, sim in zip(robots, (sim_a, sim_b)):
+            t = feature_frame(s, sim, k, t_prev)
+        t_prev = t
+        server.poll_network(now=t)
+        if k >= 4 and k % 2 == 0:
+            ts = time.perf_counter()
+            if not all(np.isfinite(od.pose).all() for od in server.solve_server().values()):
+                fail("server: a non-finite fused pose")
+            solve_ms.append((time.perf_counter() - ts) * 1e3)
+    fused = server.solve_server()
+    res = dict(drones=sorted(fused), wall_s=time.perf_counter() - t0,
+               server_solve_ms=float(np.mean(solve_ms)), vs_own_vio_m={}, ate_m={})
+    for did, (s, sim) in enumerate(zip(robots, (sim_a, sim_b))):
+        res["vs_own_vio_m"][did] = float(np.linalg.norm(s.odometry.pose[:3] - fused[did].pose[:3]))
+        traj = server.estimator.drone_trajectory(did)
+        stamps = [server.estimator.frames[w].stamp for w in server.estimator._drone_slots(did)]
+        res["ate_m"][did] = trajectory_ate(stamps, traj, sim)
+    if not (res["drones"] == [0, 1] and max(res["vs_own_vio_m"].values()) < N_SERVER_VS_OWN
+            and max(res["ate_m"].values()) < N_SERVER_ATE):
+        fail(f"server scenario out of its pins: {res}")
+    return res
+
+
+def feature_dpgo(dev):
+    """tests/test_system.py::test_two_robot_transport_dpgo on the card."""
+    bus = LocalBus()
+    sims = feature_sims()
+    robots = [feature_system(dev, i, sim, bus.endpoint(i), enable_dpgo=True, pgo_every_n_kf=4)
+              for i, sim in enumerate(sims)]
+    t0, t_prev = time.perf_counter(), 0.0
+    for k in range(18):
+        for s, sim in zip(robots, sims):
+            t = feature_frame(s, sim, k, t_prev)
+        t_prev = t
+        for s in robots:
+            s.poll_network(now=t)
+    round_ms = []
+    for _ in range(8):
+        for s in robots:
+            s.poll_network(now=t_prev)
+            ts = time.perf_counter()
+            s.solve_pgo()
+            round_ms.append((time.perf_counter() - ts) * 1e3)
+    a, b = (s.dpgo for s in robots)
+    dis = [float(np.linalg.norm(a.optimized_pose(global_frame_id(d, f))[:3]
+                                - b.optimized_pose(global_frame_id(d, f))[:3]))
+           for (d, f, _, _) in robots[0]._pgo_meta
+           if a.optimized_pose(global_frame_id(d, f)) is not None
+           and b.optimized_pose(global_frame_id(d, f)) is not None]
+    res = dict(inter_loops=[sum(e.drone_id_a != e.drone_id_b for e in s.loop_edges)
+                            for s in robots],
+               ref_frame_ids=[s.ref_frame_id for s in robots],
+               duals=[len(s.dpgo.dual_remote) for s in robots], shared_poses=len(dis),
+               median_disagreement_m=float(np.median(dis)) if dis else None,
+               arock_round_ms=float(np.mean(round_ms)), wall_s=time.perf_counter() - t0)
+    if not (min(res["inter_loops"]) >= 1 and res["ref_frame_ids"][1] == 0
+            and min(res["duals"]) >= 1 and len(dis) >= N_DPGO_MIN_SHARED
+            and res["median_disagreement_m"] < N_DPGO_MEDIAN):
+        fail(f"DPGO scenario out of its pins: {res}")
+    return res
+
+
+def lockstep(systems, step, n_frames):
+    """Run ``step(system, k, t_prev) -> t`` for every frame, one thread
+    per system behind a barrier at the top of each frame (the consensus
+    handshake steps the robots together). Raises what a thread raised."""
+    barrier = threading.Barrier(len(systems), timeout=600)
+    errors = []
+
+    def run(s):
+        try:
+            t_prev = 0.0
+            for k in range(n_frames):
+                barrier.wait()
+                t_prev = step(s, k, t_prev)
+        except BaseException as e:
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(s,)) for s in systems]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+
+
+def feature_distributed(dev):
+    """tests/test_system.py::test_two_robot_distributed_camera_consensus
+    on the card: one thread per robot."""
+    bus = LocalBus()
+    sims = feature_sims()
+    robots = [feature_system(dev, i, sim, bus.endpoint(i), estimation_mode="distributed",
+                             max_drones=2, consensus_timeout_ms=2000)
+              for i, sim in enumerate(sims)]
+
+    def step(s, k, t_prev):
+        s.poll_network(now=k / sims[s.drone_id].frame_hz)
+        return feature_frame(s, sims[s.drone_id], k, t_prev)
+
+    t0 = time.perf_counter()
+    lockstep(robots, step, 18)
+    a, b = robots
+    T = np_lie.pose_compose(np.asarray(a.odometry.pose, np.float64),
+                            np_lie.pose_inverse(sims[0].gt_pose(a.odometry.stamp)[0]))
+    gt_b = np_lie.pose_compose(T, sims[1].gt_pose(b.odometry.stamp)[0])
+    keys = [{s.estimator.consensus_key(f) for f in s.estimator.frames} for s in robots]
+    res = dict(ref_frame_ids=[s.ref_frame_id for s in robots],
+               drones_in_windows=[s.estimator.drone_ids() for s in robots],
+               shared_keys=len(keys[0] & keys[1]),
+               err_b_m=float(np.linalg.norm(b.odometry.pose[:3] - gt_b[:3])),
+               consensus_ms={s.drone_id: s.estimator.perf.report().get(
+                   "consensus_exchange", {}).get("mean_ms") for s in robots},
+               wall_s=time.perf_counter() - t0)
+    if not (res["ref_frame_ids"] == [0, 0] and res["drones_in_windows"] == [[0, 1], [0, 1]]
+            and res["shared_keys"] >= 1
+            and res["err_b_m"] < N_DIST_ERR_B):
+        fail(f"distributed scenario out of its pins: {res}")
+    return res
+
+
+def distributed_full_run(params, dev, H=480, W=640, fx=440.0, n_frames=N_FULL_FRAMES):
+    """(n.3) two robots in phase m's textured room at full width, bf16 stem,
+    NetVLAD fused, SuperGlue on the loop candidates, ``estimation_mode=
+    "distributed"`` with ``enable_dpgo``, one thread per robot; a server
+    node (in robot 0's world) ingests both robots' packets and solves."""
+    room = TexturedRoom(half=14.0, height=7.0, seed=3)
+    sims = [CircleSim(seed=7, baseline=0.2, n_landmarks=10, phase=ph) for ph in (0.0, 0.3)]
+    stamps = [k / sims[0].frame_hz for k in range(n_frames)]
+    renders = [room_views(room, sim.ext, H, W, fx) for sim in sims]
+    frames = render_ahead([lambda t=t, i=i: renders[i](sims[i].gt_pose(t)[0], t)
+                           for t in stamps for i in range(2)])
+    bus = LocalBus()
+
+    def node(i, **kw):
+        cfg = golden_config()
+        cfg.estimator.focal_length = fx
+        return D2SLAMSystem(
+            cfg, SystemConfig(drone_id=i, pgo_every_n_kf=5, netvlad_weights=NETVLAD_WEIGHTS,
+                              enable_superglue_remote=True, superglue_weights=SUPERGLUE_WEIGHTS,
+                              max_drones=2, **kw),
+            sims[0].ext, [PinholeParams.make(fx, fx, W / 2, H / 2) for _ in range(2)],
+            sp_params=params, sp_cfg=SuperPointConfig(max_keypoints=300, threshold=0.008,
+                                                      compute_dtype="bfloat16"),
+            transport=bus.endpoint(i),
+            tracker_cfg=TrackerConfig(min_keyframe_parallax=4.0, search_radius=30.0),
+            loop_cfg=LoopDetectorConfig(gdesc_dim=1024, min_gap_frames=2, min_inliers=20,
+                                        min_match_per_dir=8, pnp_thresh=16.0 / 460.0),
+            frame_rate=sims[0].frame_hz, device=dev)
+
+    robots = [node(i, estimation_mode="distributed", enable_dpgo=True,
+                   consensus_timeout_ms=300) for i in range(2)]
+    server = node(9, estimation_mode="server", assume_common_world=True, broadcast=False,
+                  enable_loop_detection=False)
+    for s in robots:
+        s.tracker.extract(np.zeros((2, H, W), np.float32))   # warm, not counted
+    torch.cuda.synchronize()
+    stem.launches = 0
+
+    def step(s, k, t_prev):
+        sim = sims[s.drone_id]
+        t = stamps[k]
+        span = (-0.3, 0.0) if k == 0 else (t_prev + 1e-6, t + 1e-6)
+        for (ts, a, g) in sim.imu_samples(*span):
+            s.input_imu(ts, a, g)
+        s.poll_network(now=t)
+        s.input_stereo(t, *frames[2 * k + s.drone_id])
+        return t
+
+    t_run = time.perf_counter()
+    lockstep(robots, step, n_frames)
+    wall = time.perf_counter() - t_run
+    stem_launches = stem.launches
+    round_ms = []
+    for _ in range(4):          # the timer-driven ARock rounds between keyframes
+        for s in robots:
+            s.poll_network(now=stamps[-1])
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            s.solve_pgo()
+            round_ms.append((time.perf_counter() - ts) * 1e3)
+    dpgo_launches = count_launches(robots[0].solve_pgo)
+    ts = time.perf_counter()
+    server.poll_network(now=stamps[-1])
+    ingest_s = time.perf_counter() - ts
+    ts = time.perf_counter()
+    fused = server.solve_server()
+    server_ms = (time.perf_counter() - ts) * 1e3
+    keys = [{s.estimator.consensus_key(f) for f in s.estimator.frames} for s in robots]
+    res = dict(frames_per_robot=n_frames, hw=[H, W], stem_launches=stem_launches,
+               ms_per_frame_per_robot=wall * 1e3 / (2 * n_frames),
+               ref_frame_ids=[s.ref_frame_id for s in robots],
+               drones_in_windows=[s.estimator.drone_ids() for s in robots],
+               shared_keys=len(keys[0] & keys[1]),
+               duals=[len(s.dpgo.dual_remote) for s in robots],
+               dpgo_ms_per_round=float(np.mean(round_ms)), dpgo_launches_per_round=dpgo_launches,
+               server_drones=sorted(fused), server_solve_ms=server_ms,
+               server_ingest_s=ingest_s, wall_s=time.perf_counter() - t_run,
+               inter_loops=[sum(e.drone_id_a != e.drone_id_b for e in s.loop_edges)
+                            for s in robots])
+    robots_out = []
+    for s in robots:
+        est = s.estimator.perf.report()
+        st, ego = s.trajectory(drone_id=s.drone_id, optimized=False)
+        robots_out.append(dict(
+            drone_id=s.drone_id,
+            consensus_ms_per_solve=est.get("consensus_exchange", {}).get("mean_ms"),
+            lm_solve_ms=est.get("lm_solve", {}).get("mean_ms"),
+            remote_frame_ms=s.perf.report().get("remote_frame", {}).get("mean_ms"),
+            vio_ate_m=trajectory_ate(st, ego, sims[s.drone_id]),
+            finite=bool(np.isfinite(s.estimator.state.poses.cpu().numpy()).all()
+                        and np.isfinite(s.trajectory()[1]).all())))
+    res["robots"] = robots_out
+    res["finite"] = all(r["finite"] for r in robots_out) and all(
+        np.isfinite(od.pose).all() for od in fused.values())
+    return res
+
+
+def _scenario_in_child(name):
+    """One n.2 scenario in a process of its own (spawned: the card needs
+    a fresh CUDA context)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fn = {"server": feature_server, "dpgo": feature_dpgo,
+          "distributed": feature_distributed}[name]
+    return fn(torch.device("cuda"))
+
+
+def feature_scenarios():
+    """(n.2) the three feature-level scenarios, each in a process of its
+    own, side by side: each is launch-bound on one host core and leaves
+    the card idle most of the time (their wall times are read with that
+    sharing). A scenario's failure fails the run."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    names = ("server", "dpgo", "distributed")
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(len(names), mp_context=multiprocessing.get_context("spawn")) as ex:
+        futures = {n: ex.submit(_scenario_in_child, n) for n in names}
+        res = {n: f.result() for n, f in futures.items()}
+    res["side_by_side_wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_multirobot(params, dev):
+    """(n) multi-robot estimation and distributed PGO: n.1 batched over 4
+    robots, n.2 the JAX package's feature-level system scenarios with their
+    pins, n.3 two robots at full width in distributed mode with DPGO and a
+    server."""
+    batched = phase_multirobot_batched(dev)
+    scen = feature_scenarios()
+    print("phase n.2 (feature-level system scenarios: server, DPGO, distributed): "
+          + json.dumps(scen), flush=True)
+    full = distributed_full_run(params, dev)
+    print("phase n.3 (two robots 480x640, distributed with DPGO, a server): "
+          + json.dumps(full), flush=True)
+    if not (full["ref_frame_ids"] == [0, 0] and full["finite"]
+            and all(d == [0, 1] for d in full["drones_in_windows"])
+            and full["shared_keys"] >= 1 and min(full["duals"]) >= 1
+            and full["server_drones"] == [0, 1]):
+        fail(f"full-width distributed run out of its gates: {full}")
+    if full["stem_launches"] != 2 * full["frames_per_robot"]:
+        fail(f"phase n: stem launches {full['stem_launches']} != 2 robots x "
+             f"{full['frames_per_robot']} frames")
+    return dict(batched=batched, scenarios=scen, full=full)
 
 
 def main():
@@ -1907,7 +2454,7 @@ def main():
     sp_cfg = SuperPointConfig(compute_dtype="bfloat16")
     cfg = D2Config()
     cfg.estimator.focal_length = 440.0
-    res = run_sequence(params, dev, 480, 640, 440.0, 16, cfg, sp_cfg,
+    res = run_sequence(params, dev, 480, 640, 440.0, FULL_WIDTH_FRAMES, cfg, sp_cfg,
                        TrackerConfig(), n_landmarks=300)
     print("phase c (full width 480x640, default configs): " + json.dumps(res), flush=True)
     if not res["finite"] or res["solves"] < 1:
@@ -1959,6 +2506,8 @@ def main():
     mark("l")
     swarm = phase_swarm(params, dev)
     mark("m")
+    multi = phase_multirobot(params, dev)
+    mark("n")
 
     big = kernel_rows["2x480x640"]
     euroc = kernel_rows[f"2x{EUROC_H}x{EUROC_W}"]
@@ -1971,12 +2520,11 @@ def main():
         "launches": (res["stem_launches"] + quad["stem_launches"] + sysres["stem_launches"]
                      + sum(dataset["stem_launches"])
                      + textured["system_480x640"]["stem_launches"]
-                     + sum(r["stem_launches"] for r in textured["golden_vio_bf16"])
                      + sum(r["stem_launches"] for k, r in options.items()
                            if not k.startswith("calibration"))
                      + sum(r["stem_launches"] for r in options["calibration_from_images"].values())
-                     + swarm["golden_textured_swarm_bf16"]["stem_launches"]
-                     + swarm["swarm_480x640"]["stem_launches"]),
+                     + swarm["swarm_480x640"]["stem_launches"]
+                     + multi["full"]["stem_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],

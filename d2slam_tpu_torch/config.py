@@ -57,7 +57,7 @@ class EstimatorConfig:
     #   (ParamResidualInfo.hpp:27, marginalization.cpp:106)
     solver_method: str = "lm"              # lm | dogleg (Ceres trust-region strategies)
     cholesky_refine_steps: int = 0         # iterative refinement (use 1 with float32)
-    consensus_max_steps: int = 1           # multi-robot consensus (not ported yet)
+    consensus_max_steps: int = 1           # ADMM sub-steps per solve (distributed mode)
     rho_frame_T: float = 100.0
     rho_frame_theta: float = 100.0
 

@@ -14,12 +14,19 @@ because an edge has few tangent directions (6 or 4 per pose).
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, Sequence, Tuple
 
 import torch
 from torch.func import jacfwd
 
 from d2slam_tpu_torch.geometry.lie import pose4d_boxplus, pose_boxplus
+
+
+# torch's forward-mode AD levels are process-wide, one at a time: two
+# threads in jacfwd at once (the robots of a lockstep swarm, one thread
+# each) would pop each other's level
+_FORWARD_AD = threading.RLock()
 
 
 def _euclidean_retract(x, d):
@@ -66,5 +73,6 @@ def linearize_factor(
         return res_fn(*(r(p, d) for r, p, d in zip(retracts, params, deltas)), *args)
 
     residual = res_fn(*params, *args)
-    jacs = jacfwd(res_of_deltas, argnums=tuple(range(len(params))))(*zeros)
+    with _FORWARD_AD:
+        jacs = jacfwd(res_of_deltas, argnums=tuple(range(len(params))))(*zeros)
     return residual, jacs

@@ -188,16 +188,17 @@ def quat_right_matrix(q):
 def quat_average(qs, weights=None):
     """Weighted quaternion average via the Markley eigenvector method
     (32 power iterations on the 4x4 moment matrix, as the JAX
-    package's fori_loop)."""
+    package's fori_loop). ``qs`` [..., n, 4], ``weights`` [..., n]:
+    leading dims are averaged independently."""
     if weights is None:
-        weights = torch.ones(qs.shape[0], dtype=qs.dtype, device=qs.device)
+        weights = torch.ones(qs.shape[:-1], dtype=qs.dtype, device=qs.device)
     tiny = torch.finfo(qs.dtype).tiny
-    w = weights / torch.clamp_min(torch.sum(weights), tiny)
-    M = torch.einsum("n,ni,nj->ij", w, qs, qs)
-    v = torch.sum(M, dim=1) + torch.full((4,), 1e-3, dtype=qs.dtype, device=qs.device)
+    w = weights / torch.clamp_min(torch.sum(weights, dim=-1, keepdim=True), tiny)
+    M = torch.einsum("...n,...ni,...nj->...ij", w, qs, qs)
+    v = torch.sum(M, dim=-1) + 1e-3
     for _ in range(32):
-        v = M @ v
-        v = v / torch.clamp_min(torch.linalg.norm(v), tiny)
+        v = (M @ v[..., None])[..., 0]
+        v = v / torch.clamp_min(torch.linalg.norm(v, dim=-1, keepdim=True), tiny)
     return quat_normalize(v)
 
 

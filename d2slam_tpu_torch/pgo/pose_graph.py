@@ -119,12 +119,17 @@ def edge_linearize(state: PGOState, edges: PGOEdges, dof: int, huber_delta: floa
     return r * w[:, None], Ja, Jb, cost
 
 
-def edge_cost(state: PGOState, edges: PGOEdges, dof: int, huber_delta: float):
-    """Total robust cost of the graph at ``state``."""
+def edge_costs(state: PGOState, edges: PGOEdges, dof: int, huber_delta: float):
+    """Robust cost of each edge at ``state``, [E]."""
     poses = state.poses
     r = vmap(_edge_factor(dof)[0])(poses[edges.i], poses[edges.j], edges.rel, edges.sqrt_info)
     valid = edges.valid & state.valid[edges.i] & state.valid[edges.j]
-    return torch.sum(_huber(r, valid, huber_delta)[1])
+    return _huber(r, valid, huber_delta)[1]
+
+
+def edge_cost(state: PGOState, edges: PGOEdges, dof: int, huber_delta: float):
+    """Total robust cost of the graph at ``state``."""
+    return torch.sum(edge_costs(state, edges, dof, huber_delta))
 
 
 def grad(r, Ja, Jb, idx_i, idx_j, N: int):
@@ -143,8 +148,9 @@ def predicted_odometry(optimized_pose, ego_pose_at_opt, ego_pose_now):
     return pose_compose(optimized_pose, rel)
 
 
-def _normal_equations(r, Ja, Jb, edges: PGOEdges, N: int):
-    """Dense H [N·dof, N·dof] and g [N·dof] from the edges' blocks."""
+def _normal_equations(r, Ja, Jb, edges: PGOEdges, N: int, unary=None):
+    """Dense H [N·dof, N·dof] and g [N·dof] from the edges' blocks, plus
+    ``unary = (idx [K], r [K, dof], J [K, dof, dof])`` one-pose rows."""
     dof = r.shape[-1]
     H4 = torch.zeros((N * N, dof, dof), dtype=r.dtype, device=r.device)
     i, j = edges.i, edges.j
@@ -154,8 +160,14 @@ def _normal_equations(r, Ja, Jb, edges: PGOEdges, N: int):
     H4.index_add_(0, i * N + j, JaT @ Jb)
     H4.index_add_(0, j * N + i, JbT @ Ja)
     H4.index_add_(0, j * N + j, JbT @ Jb)
+    g = grad(r, Ja, Jb, i, j, N)
+    if unary is not None:
+        k, ru, Ju = unary
+        JuT = Ju.transpose(1, 2)
+        H4.index_add_(0, k * (N + 1), JuT @ Ju)
+        g.index_add_(0, k, (JuT @ ru[:, :, None])[:, :, 0])
     H = H4.view(N, N, dof, dof).permute(0, 2, 1, 3).reshape(N * dof, N * dof)
-    return H, grad(r, Ja, Jb, i, j, N).reshape(-1)
+    return H, g.reshape(-1)
 
 
 def solve_pgo(

@@ -1,11 +1,11 @@
 """One robot's full stack in one object: frontend, VIO, loop closure, PGO,
 and the swarm link.
 
-Counterpart of ``d2slam_tpu/runtime/system.py`` in its
-``estimation_mode="single"``. The reference runs ``d2vins_node`` (CNN
-frontend, tracking, VIO, keyframe broadcast), ``d2pgo_node`` (pose-graph
-backend) and ``d2comm_node`` as processes joined by ROS topics
-(d2vins/src/d2vins_node.cpp:29, 128-303; d2pgo/src/d2pgo_node.cpp:15-230);
+Counterpart of ``d2slam_tpu/runtime/system.py``. The reference runs
+``d2vins_node`` (CNN frontend, tracking, VIO, keyframe broadcast),
+``d2pgo_node`` (pose-graph backend) and ``d2comm_node`` as processes
+joined by ROS topics (d2vins/src/d2vins_node.cpp:29, 128-303;
+d2pgo/src/d2pgo_node.cpp:15-230);
 here they are one library object:
 
     images + IMU ──► FeatureTracker (SuperPoint + fused NetVLAD) ──► D2Estimator
@@ -31,9 +31,14 @@ toward the lowest drone id and solves one pose graph over every robot's
 keyframes. ``enable_superglue_local`` / ``_remote`` route the tracker's
 and the loop detector's matching through SuperGlue.
 
-Not ported yet, and raising ``NotImplementedError``: the multi-robot
-estimators (``estimation_mode`` "distributed" / "server", with the
-consensus over the transport) and ``enable_dpgo``: the multi-robot slice.
+Multi-robot estimation (``estimation_mode``): "single" solves the own
+window; "distributed" (DISTRIBUTED_CAMERA_CONSENUS) ingests the peers'
+keyframes into a pooled window (``vins.solve_all``) and runs consensus
+sub-steps with them over the transport at every solve, the robots
+stepping in lockstep on the consensus tokens; "server" is a ground
+station that estimates every drone from their packets alone
+(``solve_server``). ``enable_dpgo`` replaces the local pose-graph solve
+with ARock rounds over the transport (``pgo.dpgo_transport``).
 Dropped as TPU placement
 workarounds with no counterpart on a local card: ``host_glue_on_cpu`` /
 ``default_to_cpu`` and the ``PackedAccelFn`` wrappers of the extraction,
@@ -52,8 +57,11 @@ import numpy as np
 import torch
 
 from d2slam_tpu_torch.comm.codec import RemoteKeyframePacket
+from d2slam_tpu_torch.comm.consensus_transport import TransportConsensus
 from d2slam_tpu_torch.comm.loopnet import CH_KF_REQUEST, LoopNet, nearby_drones_from_pgo
 from d2slam_tpu_torch.comm.transport import (
+    CH_DISTRIB_VINS,
+    CH_PGO_DATA,
     CH_SWARM_LOOP,
     CH_VIOKF_HEADER,
     CH_VIOKF_IMG,
@@ -80,13 +88,15 @@ from d2slam_tpu_torch.frontend.superglue import (
 from d2slam_tpu_torch.frontend.tracker import FeatureTracker, TrackerConfig, _img_u8
 from d2slam_tpu_torch.frontend.train_frontend import load_weights
 from d2slam_tpu_torch.pgo import PGOEdges, PGOLayout, PGOReport, PGOState, solve_pgo, solve_pgo_pcg
+from d2slam_tpu_torch.pgo.dpgo_transport import DPGOTransportConfig, TransportDPGO
 from d2slam_tpu_torch.pgo.pcm import pcm_filter
 from d2slam_tpu_torch.utils import np_lie
 from d2slam_tpu_torch.utils.device import resolve_device
 from d2slam_tpu_torch.utils.perf import PerfTracker
 from d2slam_tpu_torch.vins.estimator import D2Estimator
+from d2slam_tpu_torch.vins.solve_all import SolveAllEstimator
 from d2slam_tpu_torch.vins.swarm import SwarmManager
-from d2slam_tpu_torch.vins.types import FrontendFrame, Odometry
+from d2slam_tpu_torch.vins.types import FrontendFrame, Odometry, global_frame_id
 
 
 @dataclasses.dataclass
@@ -129,10 +139,27 @@ class SystemConfig:
     # ship the PNG-compressed camera view(s) with every keyframe
     # (reference send_img -> VIOKF_IMG_ARRAY; debug and visualization)
     send_img: bool = False
-    # reference ESTIMATION_MODE; only "single" is ported (the others and
-    # DPGO, with their knobs, come with the multi-robot slice)
+    # reference ESTIMATION_MODE (d2basetypes.h): "single" solves only our
+    # own window; "distributed" is DISTRIBUTED_CAMERA_CONSENUS: remote
+    # keyframes join our window (addFrameRemote) and every solve runs
+    # consensus-ADMM sub-steps with the peers, shared poses matched by
+    # frame id on the wire; "server" estimates every drone from their
+    # packets, with no sensors of its own
     estimation_mode: str = "single"
+    max_drones: int = 3                  # windows in the pooled estimator
+    consensus_timeout_ms: int = 100      # wait for the peers' copies per sub-step
+    # ingest remote frames before a map alignment exists (a swarm launched
+    # in a shared world frame, e.g. from a common takeoff calibration;
+    # otherwise frames wait for the first inter-drone loop)
+    assume_common_world: bool = False
+    # transport-based distributed PGO: ARock rounds over CH_PGO_DATA
+    # (reference ARockPGO -> d2comm -> PGO_Sync_Data) in place of the
+    # local pose-graph solve
     enable_dpgo: bool = False
+    dpgo_rho_T: float = 0.1              # pgo_rho_frame_T
+    dpgo_rho_theta: float = 2.0          # pgo_rho_frame_theta
+    dpgo_eta_k: float = 0.9              # pgo_eta_k
+    dpgo_iters: int = 6                  # LM iterations per ARock step
     broadcast_loops: bool = True         # share loops on SWARM_LOOP_CONN
     # nearby-drone gate of the lazy broadcast's full-frame escalation
     # (reference getNearbyDronesbyPGOData, d2estimator.cpp:931-976)
@@ -168,10 +195,6 @@ def image_embedding_gdesc(img: np.ndarray, dim: int = 1024) -> np.ndarray:
     out[: v.size] = v - v.mean()
     n = np.linalg.norm(out)
     return out / n if n > 1e-9 else out
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (the multi-robot slice)")
 
 
 class D2SLAMSystem:
@@ -214,21 +237,18 @@ class D2SLAMSystem:
         superglue_cfg: Optional[SuperGlueConfig] = None,
         device=None,
     ):
-        if sys_cfg.estimation_mode in ("distributed", "server"):
-            _not_ported(f"estimation_mode={sys_cfg.estimation_mode!r}")
-        if sys_cfg.estimation_mode != "single":
+        if sys_cfg.estimation_mode not in ("single", "distributed", "server"):
             raise ValueError(f"unknown estimation_mode {sys_cfg.estimation_mode!r} "
                              "(expected single | distributed | server)")
-        if sys_cfg.enable_dpgo:
-            _not_ported("enable_dpgo (distributed PGO)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ext = np.asarray(extrinsics, np.float64)
         self.drone_id = sys_cfg.drone_id
-        # the world frame our poses live in: our own drone id at the start,
-        # merged toward the lowest id in the swarm (reference D2State
-        # reference_frame_id and moveAllPoses, d2estimator.cpp:274-281)
-        self.ref_frame_id = self.drone_id
+        # the world frame our poses live in: our own drone id at the start
+        # (0 in a common world), merged toward the lowest id in the swarm
+        # (reference D2State reference_frame_id and moveAllPoses,
+        # d2estimator.cpp:274-281)
+        self.ref_frame_id = 0 if sys_cfg.assume_common_world else self.drone_id
         self.perf = PerfTracker()
 
         if sp_cfg is None:
@@ -324,7 +344,18 @@ class D2SLAMSystem:
                                      lm_pos_fn=lm_pos_fn, kf_pose_fn=kf_pose_fn,
                                      device=self.device)
         self.swarm = SwarmManager(self.drone_id, self.detector)
-        self.estimator = D2Estimator(cfg, self.ext, device=self.device)
+        if sys_cfg.estimation_mode == "single":
+            self.estimator = D2Estimator(cfg, self.ext, device=self.device)
+        else:
+            # "server" is the reference's ESTIMATION_MODE SERVER
+            # (d2basetypes.h:38-44): the same pooled estimator fed only
+            # remote frames
+            cfg.self_id = self.drone_id
+            self._lm_key_pin: Dict[int, int] = {}
+            self.estimator = SolveAllEstimator(
+                cfg, self.ext, max_drones=sys_cfg.max_drones,
+                server_mode=sys_cfg.estimation_mode == "server", lm_id_map=self._lm_key,
+                device=self.device)
 
         self.loopnet: Optional[LoopNet] = None
         self._last_bcast_t = 0.0
@@ -346,6 +377,21 @@ class D2SLAMSystem:
             # onImgDescHeaderRecevied -> getMatchedPrevKeyframe NetVLAD gate)
             self.loopnet.want_full = lambda pkt: (
                 self.detector.query_score(pkt.gdesc) > self.detector.effective_netvlad_thres())
+        self.dpgo: Optional[TransportDPGO] = None
+        if transport is not None and sys_cfg.enable_dpgo:
+            self.dpgo = TransportDPGO(
+                router.route({CH_PGO_DATA}), self.drone_id,
+                DPGOTransportConfig(
+                    max_poses=sys_cfg.pgo_max_poses, max_edges=sys_cfg.pgo_max_edges,
+                    max_anchors=sys_cfg.pgo_max_poses, rho_T=sys_cfg.dpgo_rho_T,
+                    rho_theta=sys_cfg.dpgo_rho_theta, eta_k=sys_cfg.dpgo_eta_k,
+                    iters_per_step=sys_cfg.dpgo_iters),
+                ref_frame_id=self.ref_frame_id, device=self.device)
+        if transport is not None and sys_cfg.estimation_mode == "distributed":
+            self.estimator.attach_consensus(
+                TransportConsensus(router.route({CH_DISTRIB_VINS}), self.drone_id,
+                                   ref_frame_id=self.ref_frame_id),
+                expected_peers=sys_cfg.max_drones - 1, timeout_ms=sys_cfg.consensus_timeout_ms)
 
         # ---- PGO graph bookkeeping (host side) ----
         self._pgo_slot: Dict[Tuple[int, int], int] = {}   # (drone, frame) -> slot
@@ -355,6 +401,8 @@ class D2SLAMSystem:
         self._ego_edges: List[Tuple[int, int, np.ndarray, float]] = []
         self.loop_edges: List[LoopEdge] = []
         self._loop_keys: set = set()          # dedup (a, b) loop pairs
+        self._dpgo_ego_synced = 0             # ego edges pushed to the DPGO endpoint
+        self._dpgo_loops_added: set = set()   # loop pairs pushed to it
         self._pgo_poses: Optional[np.ndarray] = None  # optimized [N, 7]
         self._pgo_capacity = sys_cfg.pgo_max_poses
         self._pgo_edge_capacity = sys_cfg.pgo_max_edges
@@ -436,6 +484,40 @@ class D2SLAMSystem:
         if self.loopnet is None:
             return 0
         return self.loopnet.poll(now, timeout_ms)
+
+    def solve_server(self) -> Dict[int, Odometry]:
+        """SERVER mode's solve: jointly optimize every ingested drone's
+        window from their packets and return each drone's latest fused
+        odometry (reference SERVER solve path, d2estimator.cpp:700-736;
+        the reference triggers it from the solver timer). Call it
+        periodically after ``poll_network``."""
+        if self.sys.estimation_mode != "server":
+            raise RuntimeError("solve_server needs estimation_mode='server'")
+        self.estimator.solve_remote_only()
+        out: Dict[int, Odometry] = {}
+        for d in self.estimator.drone_ids():
+            od = self.estimator.drone_odometry(d)
+            if od is not None:
+                out[d] = od
+        return out
+
+    def _lm_key(self, d: int, lid: int) -> int:
+        """The pooled estimator's key of drone ``d``'s landmark ``lid``.
+        A landmark unified with one of ours collapses to our raw id, so
+        own and remote observations fuse (reference trackRemote id
+        unification); tracks established before a merge keep their key.
+        Once decided, a key is pinned: testing the live database again
+        would flip once the landmark is marginalized out and split its
+        observations over two tracks."""
+        orig = lid if d == self.drone_id else global_frame_id(d, lid)
+        pinned = self._lm_key_pin.get(orig)
+        if pinned is not None:
+            return pinned
+        od, oid = self.swarm.unified_id(d, lid)
+        uni = oid if od == self.drone_id else global_frame_id(od, oid)
+        key = orig if uni != orig and orig in self.estimator.lmanager.db else uni
+        self._lm_key_pin[orig] = key
+        return key
 
     # ------------------------------------------------------------------
     # keyframe fan-out: loop detection, PGO graph, broadcast
@@ -685,6 +767,13 @@ class D2SLAMSystem:
         a = self.swarm.alignments.get(d)
         if a is not None and pkt.ref_frame_id < self.ref_frame_id:
             self._merge_reference_frame(pkt.ref_frame_id, np_lie.pose_inverse(a.transform))
+        if (self.sys.estimation_mode != "single" and len(pkt.lm_ids)
+                and pkt.ref_frame_id == self.ref_frame_id):
+            # a packet in our reference frame holds poses in our world
+            # already (reference addFrameRemote takes pose_drone as it is
+            # when reference_frame_id matches)
+            with self.perf.stage("remote_frame"):
+                self.estimator.input_remote_frame(pkt)
         # remote keyframes extend the pose graph in the remote drone's ego
         # frame, seeded aligned once an alignment exists (packets in our
         # reference frame need none). A peer that merges its map sends its
@@ -716,6 +805,10 @@ class D2SLAMSystem:
         alignments and the odometry. A solve in flight is dropped."""
         self.estimator.move_all_poses(T)
         self.ref_frame_id = new_ref
+        cons = self.estimator._consensus
+        if cons is not None:
+            cons.ref_frame_id = new_ref
+            self.estimator._consensus_tilde.clear()
         with self._pgo_lock:
             self._pgo_epoch += 1
             for slot, (d, fid, stamp, ego) in enumerate(self._pgo_meta):
@@ -734,6 +827,12 @@ class D2SLAMSystem:
         for did, al in list(self.swarm.alignments.items()):
             self.swarm.alignments[did] = al._replace(
                 transform=np_lie.pose_compose(T, al.transform))
+        if self.dpgo is not None:
+            for slot in range(len(self.dpgo.keys)):
+                self.dpgo.poses[slot] = np_lie.pose_compose(T, self.dpgo.poses[slot])
+            self.dpgo.ref_frame_id = new_ref
+            self.dpgo.dual_local.clear()
+            self.dpgo.dual_remote.clear()
         if self.odometry is not None:
             self.odometry = self.estimator.latest_odometry()
 
@@ -836,12 +935,62 @@ class D2SLAMSystem:
         with self._pgo_solve_lock, self.perf.stage("pgo_solve"):
             return self._solve_pgo_impl()
 
+    def _solve_pgo_distributed(self) -> np.ndarray:
+        """One ARock DPGO round over the transport (reference solve_multi
+        -> ARockPGO, d2pgo.cpp:155-328): the new nodes and edges of our
+        graph (PCM-kept loops) go into the endpoint, a round runs
+        (receive, anchored local solve, dual update, broadcast) and the
+        optimized poses come back into the pose table."""
+        dp = self.dpgo
+        with self._pgo_lock:
+            epoch0 = self._pgo_epoch
+            n = len(self._pgo_meta)
+            for slot, (d, fid, _, _) in enumerate(self._pgo_meta):
+                dp.add_frame(global_frame_id(d, fid), owner=d, pose=self._pgo_poses[slot])
+            keys = [global_frame_id(d, fid) for (d, fid, _, _) in self._pgo_meta]
+            for (a, b, r, dist) in self._ego_edges[self._dpgo_ego_synced:]:
+                cov_p = max(self.sys.ego_cov_min, self.sys.ego_pos_cov_per_m * dist)
+                cov_y = max(self.sys.ego_cov_min, self.sys.ego_yaw_cov_per_m * dist)
+                dp.add_edge(keys[a], keys[b], r,
+                            np.diag([1 / np.sqrt(cov_p)] * 3 + [1 / np.sqrt(cov_y)] * 3))
+            self._dpgo_ego_synced = len(self._ego_edges)
+            loops = self._usable_loops()
+            mask = self._pcm_mask(loops) if len(loops) > 1 else np.ones(len(loops), bool)
+            self.loops_kept = int(mask.sum())
+            for keep, (sa, sb, e) in zip(mask, loops):
+                lk = (e.drone_id_a, e.frame_id_a, e.drone_id_b, e.frame_id_b)
+                if not keep or lk in self._dpgo_loops_added:
+                    continue
+                si = np.diag([1 / np.sqrt(e.pos_cov)] * 3 + [1 / np.sqrt(e.yaw_cov)] * 3)
+                if dp.add_edge(keys[sa], keys[sb], e.rel_pose, si):
+                    self._dpgo_loops_added.add(lk)
+            now = self._pgo_meta[-1][2]
+        dp.updated = True   # a timer-driven round (the reference's solver cadence)
+        stream = self._pgo_stream
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            dp.solve(stamp=now)
+        with self._pgo_lock:
+            if self._pgo_epoch == epoch0:
+                for slot in range(n):
+                    p = dp.optimized_pose(keys[slot])
+                    if p is not None:
+                        self._pgo_poses[slot] = p
+            out = self._pgo_poses[:n].copy()
+            self.pgo_solve_count += 1
+            if dp.last_report is not None:
+                self.last_pgo_report = PGOReport(*dp.last_report)
+        return out
+
     def _solve_pgo_impl(self) -> Optional[np.ndarray]:
         self._kf_since_pgo = 0
         with self._pgo_lock:
             n = len(self._pgo_meta)
             if n < 3:
                 return None
+        if self.dpgo is not None:
+            return self._solve_pgo_distributed()
+        with self._pgo_lock:
+            n = len(self._pgo_meta)
             epoch0 = self._pgo_epoch
             # grow edge capacity ahead of assembly so no edge is dropped
             needed = len(self._ego_edges) + len(self.loop_edges)

@@ -76,6 +76,7 @@ def lm_solve_vio(
     landmark_param: str = "inv_dep",
     method: str = "lm",
     refine_steps: int = 0,
+    consensus=None,
 ):
     """Run LM on the sliding window. Returns (new_state, SolveReport).
 
@@ -88,6 +89,10 @@ def lm_solve_vio(
 
     method: "lm" (diagonal damping) or "dogleg" (trust region, initial
     radius 1).
+
+    consensus: optional ``(ref_poses [W, 7], tilde [W, 6], active [W],
+    rho_T, rho_theta)``: per-frame ADMM consensus penalty rows (reference
+    ConsenusPoseFactor), linearized again at every iteration.
     """
     if method not in ("lm", "dogleg"):
         raise ValueError(f"unknown solver method {method!r}")
@@ -105,7 +110,7 @@ def lm_solve_vio(
             layout, s, imu, proj, prior,
             gravity=gravity, proj_sqrt_info=proj_sqrt_info,
             dep_sqrt_info=dep_sqrt_info, huber_delta=huber_delta,
-            landmark_param=landmark_param,
+            landmark_param=landmark_param, consensus=consensus,
         )
 
     def chol_solve_neg(H_red, g_red):

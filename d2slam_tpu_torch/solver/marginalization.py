@@ -155,6 +155,33 @@ def make_pose_prior(layout: VIOLayout, state: VIOState, frame: int,
                       lin=state, row_valid=row_valid)
 
 
+def add_gauge_rows(layout: VIOLayout, prior: PriorBlock, state: VIOState, frame: int,
+                   pos_sqrt_info: float = 1.0, rot_sqrt_info: float = 1.0) -> PriorBlock:
+    """Write a 6-dof pose prior on ``frame`` into the first six free rows
+    of an existing prior, with ``frame``'s state as its linearization
+    point. A drone joining the SOLVE_ALL window gets one on its first
+    frame, the main drone's 100x stiffer (reference
+    createPriorFactor4FirstFrame, d2vinsstate.cpp:503-555)."""
+    free = torch.nonzero(~prior.row_valid).flatten()
+    if len(free) < 6:
+        raise RuntimeError("no free prior rows for gauge prior")
+    rows = free[:6]
+    c0 = 15 * frame
+    J, r, rv = prior.J.clone(), prior.r.clone(), prior.row_valid.clone()
+    J[rows] = 0.0
+    J[rows, c0: c0 + 6] = torch.diag(torch.tensor(
+        [pos_sqrt_info] * 3 + [rot_sqrt_info] * 3, dtype=J.dtype, device=J.device))
+    r[rows] = 0.0
+    rv[rows] = True
+    lin = prior.lin
+    poses, sb, fv = lin.poses.clone(), lin.sb.clone(), lin.frame_valid.clone()
+    poses[frame] = state.poses[frame].to(poses)
+    sb[frame] = state.sb[frame].to(sb)
+    fv[frame] = True
+    return prior._replace(J=J, r=r, row_valid=rv,
+                          lin=lin._replace(poses=poses, sb=sb, frame_valid=fv))
+
+
 def solve_and_marginalize(
     layout: VIOLayout,
     state: VIOState,

@@ -209,7 +209,7 @@ def build_proj_normal_pos3d(
 
 
 def fold_rows(n: Normal, rb: RowBlock) -> Normal:
-    """Add a landmark-free row block (IMU, prior) as rows^T rows."""
+    """Add a landmark-free row block (IMU, prior, consensus) as rows^T rows."""
     return n._replace(
         H=n.H + rb.J.T @ rb.J,
         g=n.g + rb.J.T @ rb.r,
@@ -229,12 +229,20 @@ def build_window_normal(
     dep_sqrt_info: float,
     huber_delta: float,
     landmark_param: str = "inv_dep",
+    consensus=None,
 ) -> Normal:
-    """Full window: projection + IMU + prior normal equations."""
+    """Full window: projection + IMU + prior (+ consensus) normal
+    equations. ``consensus``: ``(ref_poses [W, 7], tilde [W, 6], active
+    [W], rho_T, rho_theta)``, the ADMM penalty rows of
+    ``parallel.consensus.build_consensus_rows``."""
     build = (build_proj_normal_pos3d if landmark_param == "pos3d"
              else build_proj_normal)
     n = build(layout, state, proj, proj_sqrt_info, dep_sqrt_info, huber_delta)
     n = fold_rows(n, build_imu_rows(layout, state, imu, gravity))
     if prior is not None:
         n = fold_rows(n, build_prior_rows(layout, state, prior))
+    if consensus is not None:
+        from d2slam_tpu_torch.parallel.consensus import build_consensus_rows
+
+        n = fold_rows(n, build_consensus_rows(layout, state, *consensus))
     return n

@@ -35,6 +35,16 @@ def cudnn_fp32():
         torch.backends.cudnn.allow_tf32 = prev
 
 
+def load_cuda_linalg(device: torch.device) -> None:
+    """Load torch's CUDA linear-algebra library now, on this thread.
+    torch loads it at the first linalg call on the card, and that load is
+    not thread-safe: two robot threads making their first Cholesky at
+    once fail with "lazy wrapper should be called at most once". Objects
+    that robot threads use call this when they are built."""
+    if device.type == "cuda":
+        torch.linalg.cholesky_ex(torch.ones((1, 1), device=device))
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """Config dtype string ("float64" / "float32") -> torch dtype."""
     return {"float64": torch.float64, "float32": torch.float32}[name]

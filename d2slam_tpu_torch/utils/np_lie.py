@@ -109,3 +109,63 @@ def pose_apply(a, x):
 
 def quat_from_yaw(yaw):
     return np.array([0.0, 0.0, np.sin(yaw / 2), np.cos(yaw / 2)])
+
+
+def quat_log(q):
+    """Rotation vector (axis*angle) of a unit quaternion (xyzw)."""
+    q = q / np.linalg.norm(q)
+    if q[3] < 0:
+        q = -q
+    s = np.linalg.norm(q[:3])
+    if s < 1e-12:
+        return 2.0 * q[:3]
+    return 2.0 * np.arctan2(s, q[3]) * q[:3] / s
+
+
+def quat_exp(w):
+    """Unit quaternion (xyzw) of a rotation vector."""
+    th = np.linalg.norm(w)
+    if th < 1e-12:
+        return np.concatenate([0.5 * w, [1.0]]) / np.linalg.norm(
+            np.concatenate([0.5 * w, [1.0]])
+        )
+    ax = w / th
+    return np.concatenate([np.sin(th / 2) * ax, [np.cos(th / 2)]])
+
+
+def pose_log(p):
+    """Tangent [dt(3), dtheta(3)] of a pose (translation part raw, not
+    the SE(3) V-matrix coupling — matches the reference Swarm::Pose
+    tangentSpace convention of decoupled pos/att)."""
+    return np.concatenate([p[:3], quat_log(p[3:])])
+
+
+def pose_exp(x):
+    return np.concatenate([x[:3], quat_exp(x[3:])])
+
+
+def pose_average(poses):
+    """Euclidean position mean + Markley quaternion average of [n, 7]
+    (reference Swarm::Pose::averagePoses)."""
+    poses = np.asarray(poses, np.float64)
+    pos = poses[:, :3].mean(axis=0)
+    M = np.zeros((4, 4))
+    for q in poses[:, 3:]:
+        q = q / np.linalg.norm(q)
+        M += np.outer(q, q)
+    w, v = np.linalg.eigh(M)
+    q = v[:, -1]
+    if q[3] < 0:
+        q = -q
+    return np.concatenate([pos, q / np.linalg.norm(q)])
+
+
+def yaw_of(q):
+    """Yaw (Z euler) of quaternion [x, y, z, w]."""
+    x, y, z, w = q
+    return float(np.arctan2(2.0 * (w * z + x * y),
+                            1.0 - 2.0 * (y * y + z * z)))
+
+
+def wrap_angle(a):
+    return float(np.arctan2(np.sin(a), np.cos(a)))

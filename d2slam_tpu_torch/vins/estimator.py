@@ -24,7 +24,11 @@ The dense prior stays a device tensor across keyframes; window shifts
 are recorded as a pending slot permutation and applied on the device at
 the next solve.
 
-Not ported yet (ROADMAP.md): multi-robot consensus and map merge.
+Multi-robot hooks: ``attach_consensus`` turns every window solve into
+ADMM sub-steps with the peers over a transport
+(DISTRIBUTED_CAMERA_CONSENUS), and the SOLVE_ALL pool
+(``vins.solve_all``) overrides ``_imu_chain`` and the window policy;
+frames it drops are marginalized on their own (``_drop_frame``).
 """
 from __future__ import annotations
 
@@ -44,20 +48,22 @@ from d2slam_tpu_torch.imu.preintegration import (
     preintegrate,
 )
 from d2slam_tpu_torch.solver.layout import VIOLayout
+from d2slam_tpu_torch.solver.lm import lm_solve_vio
 from d2slam_tpu_torch.solver.marginalization import (
     make_pose_prior,
+    marginalize,
     permute_prior_device,
     solve_and_marginalize_carry,
     zero_prior,
 )
 from d2slam_tpu_torch.solver.state import ImuMeas, PriorBlock, ProjMeas, VIOState
 from d2slam_tpu_torch.utils import np_lie
-from d2slam_tpu_torch.utils.device import resolve_device, torch_dtype
+from d2slam_tpu_torch.utils.device import load_cuda_linalg, resolve_device, torch_dtype
 from d2slam_tpu_torch.utils.perf import PerfTracker
 from d2slam_tpu_torch.vins.initialization import linear_alignment
 from d2slam_tpu_torch.vins.landmark_manager import ESTIMATED, LandmarkManager
 from d2slam_tpu_torch.vins.sfm_init import align_to_gravity, sfm_initialize
-from d2slam_tpu_torch.vins.types import FrontendFrame, Odometry
+from d2slam_tpu_torch.vins.types import FrontendFrame, Odometry, global_frame_id
 
 
 def _sync(device: torch.device) -> None:
@@ -136,6 +142,7 @@ class D2Estimator:
                 f"config.num_cams={config.num_cams}; set num_cams to match"
             )
         self.device = resolve_device(device)
+        load_cuda_linalg(self.device)
         self.dtype = torch_dtype(config.dtype)
         self.layout = VIOLayout(
             W=e.max_sld_win_size,
@@ -174,6 +181,14 @@ class D2Estimator:
         self.lm_slot_of: Dict[int, int] = {}
         self.perf = PerfTracker()
         self.last_report = None
+        # the measurements of the last solve, for a marginalization after
+        # it; stale once window slots moved
+        self._last_meas = None
+        self._meas_stale = False
+        # the slot the last solve already marginalized (fused into it)
+        self._fused_marg_slot: Optional[int] = None
+        # consensus over a transport (attach_consensus)
+        self._consensus = None
         self._solver_kw = dict(
             gravity=self.gravity,
             proj_sqrt_info=e.focal_length / 1.5,
@@ -413,6 +428,13 @@ class D2Estimator:
             self._np(self.state.poses), self._np(self.state.ext),
         )
 
+    def _imu_chain(self):
+        """Preintegration intervals as (slot_i, slot_j, imu_buffer): one
+        chain of consecutive frames per drone (the SOLVE_ALL pool runs
+        one per drone, reference setupImuFactors over remote windows,
+        d2estimator.cpp:700-736)."""
+        return [(w, w + 1, self.imubuf) for w in range(len(self.frames) - 1)]
+
     def _build_imu(self) -> ImuMeas:
         layout = self.layout
         K, n = layout.W - 1, layout.N_IMU_SAMPLES
@@ -423,11 +445,10 @@ class D2Estimator:
         valid = np.zeros(K, bool)
         fi = np.zeros(K, np.int64)
         fj = np.zeros(K, np.int64)
-        for k in range(min(len(self.frames) - 1, K)):
-            d, a, g, m = self.imubuf.period(
-                self.frames[k].stamp, self.frames[k + 1].stamp, n)
+        for k, (si, sj, buf) in enumerate(self._imu_chain()[:K]):
+            d, a, g, m = buf.period(self.frames[si].stamp, self.frames[sj].stamp, n)
             dts[k], accs[k], gyrs[k], mask[k] = d, a, g, m
-            fi[k], fj[k] = k, k + 1
+            fi[k], fj[k] = si, sj
             valid[k] = m.any()
         cut = _valid_prefix(mask)
         fi_t = self._t(fi, torch.long)
@@ -532,6 +553,30 @@ class D2Estimator:
     # solve & window management
     # ------------------------------------------------------------------
 
+    def attach_consensus(self, transport_consensus, expected_peers: int,
+                         timeout_ms: int = 100) -> None:
+        """DISTRIBUTED_CAMERA_CONSENUS: every window solve becomes
+        ``consensus_max_steps`` ADMM sub-steps exchanging shared poses with
+        the peers over the transport (reference solveinDistributedMode,
+        d2estimator.cpp:502-602; the transport's iteration token is the
+        reference's sync token). Shared poses are matched across robots by
+        64-bit (drone_id, frame_id) keys, never by window slot, so robots
+        whose keyframe decisions diverge still average exactly the frames
+        they share (reference VINSConsenusSolver.cpp:60-92); the duals are
+        keyed by frame id too and survive window shifts."""
+        self._consensus = transport_consensus
+        self._consensus_peers = expected_peers
+        self._consensus_timeout = timeout_ms
+        self._consensus_token = 0
+        self._consensus_tilde: Dict[int, np.ndarray] = {}
+
+    def consensus_key(self, frame: WindowFrame) -> int:
+        """Swarm-wide identity of a window frame: own frames fold our drone
+        id in; remote frames (SOLVE_ALL pool) carry the folded id already."""
+        if frame.drone_id < 0:
+            return global_frame_id(self.cfg.self_id, frame.frame_id)
+        return int(frame.frame_id)
+
     @property
     def prior(self) -> Optional[PriorBlock]:
         """The current prior, with pending window shifts applied (a
@@ -539,6 +584,12 @@ class D2Estimator:
         if self._prior is None or self._pending_perm is None:
             return self._prior
         return permute_prior_device(self.layout, self._prior, self._pending_perm)
+
+    @prior.setter
+    def prior(self, value: Optional[PriorBlock]) -> None:
+        """Replace the prior; ``value`` is in the current slot layout."""
+        self._prior = value
+        self._pending_perm = None
 
     def _plan_marg_slot(self) -> int:
         """Which slot _manage_window will marginalize after this solve
@@ -553,6 +604,20 @@ class D2Estimator:
     def _solve_window(self):
         with self.perf.stage("build_measurements"):
             imu, proj = self._build_measurements()
+        self._last_meas = (imu, proj)
+        self._meas_stale = False
+        if self._consensus is not None:
+            report = self._solve_consensus(imu, proj)
+        else:
+            report = self._solve_fused(imu, proj)
+        self.solve_count += 1
+        self.last_report = report
+        with self.perf.stage("sync_back"):
+            self._sync_back()
+
+    def _solve_fused(self, imu: ImuMeas, proj: ProjMeas):
+        """The solve with the window-management marginalization planned
+        now fused into it, the prior carried on the device."""
         marg_slot = self._plan_marg_slot()
         remove = np.zeros(self.layout.W, bool)
         if marg_slot >= 0:
@@ -574,10 +639,41 @@ class D2Estimator:
         self.state = new_state
         if marg_slot >= 0:
             self.margin_count += 1
-        self.solve_count += 1
-        self.last_report = report
-        with self.perf.stage("sync_back"):
-            self._sync_back()
+            self._fused_marg_slot = marg_slot
+        return report
+
+    def _solve_consensus(self, imu: ImuMeas, proj: ProjMeas):
+        """ADMM sub-steps: broadcast our window's poses, average them with
+        the peers' copies by frame key, update the duals (on the host,
+        ``comm.consensus_transport``), then solve with the consensus rows
+        (reference solveinDistributedMode, d2estimator.cpp:502-602). The
+        window's marginalization runs afterwards, on its own."""
+        e = self.cfg.estimator
+        n = len(self.frames)
+        keys = np.array([self.consensus_key(f) for f in self.frames], np.int64)
+        self.prior = self.prior   # commit pending window shifts
+        col_free = self._col_free()
+        lm_kw = {k: v for k, v in self._solver_kw.items() if k != "remove_base_mode"}
+        report = None
+        for _ in range(max(e.consensus_max_steps, 1)):
+            poses = self._np(self.state.poses).astype(np.float64)
+            with self.perf.stage("consensus_exchange"):
+                gp_n, tilde_n, _, _ = self._consensus.consensus_step(
+                    self._consensus_token, keys, poses[:n], self._consensus_tilde,
+                    self._consensus_peers, self._consensus_timeout)
+            self._consensus_token += 1
+            gp = poses.copy()
+            gp[:n] = gp_n
+            tilde = np.zeros((self.layout.W, 6))
+            tilde[:n] = tilde_n
+            cons = (self._t(gp), self._t(tilde), self.state.frame_valid,
+                    e.rho_frame_T, e.rho_frame_theta)
+            with self.perf.stage("lm_solve"):
+                self.state, report = lm_solve_vio(
+                    self.layout, self.state, imu, proj, self._prior,
+                    col_free=col_free, consensus=cons, **lm_kw)
+                _sync(self.device)
+        return report
 
     def _sync_back(self):
         """Write solved landmark states back to the DB + outlier check
@@ -624,21 +720,58 @@ class D2Estimator:
     def _manage_window(self):
         if len(self.frames) < self.layout.W:
             return
-        # reference clearUselessFrames: drop second-newest non-keyframe,
-        # else the oldest keyframe (already marginalized in the solve)
+        # reference clearUselessFrames: drop the second-newest non-keyframe,
+        # else marginalize the oldest keyframe
         if not self.frames[-2].is_keyframe:
-            self._drop_frame(len(self.frames) - 2)
+            self._drop_frame(len(self.frames) - 2, marginalize_it=False)
         else:
-            self._drop_frame(0)
+            self._drop_frame(0, marginalize_it=True)
 
-    def _drop_frame(self, slot: int):
+    def _drop_frame(self, slot: int, marginalize_it: bool = False):
+        """Take ``slot`` out of the window; with ``marginalize_it``, its
+        information goes into the prior first (unless the last solve's
+        fused step did that already)."""
         frame = self.frames[slot]
+        if marginalize_it and self._fused_marg_slot == slot:
+            marginalize_it = False
+        self._fused_marg_slot = None
+        if marginalize_it and self.solve_count > 0 and self._last_meas is not None:
+            if self._meas_stale:
+                # slots moved since the measurements were built (several
+                # drops in one cycle of the SOLVE_ALL pool): rebuild so the
+                # marginalized rows index live slots
+                self._last_meas = self._build_measurements()
+                self._meas_stale = False
+            imu, proj = self._last_meas
+            remove = torch.zeros(self.layout.W, dtype=torch.bool, device=self.device)
+            remove[slot] = True
+            with self.perf.stage("marginalize"):
+                kw = self._solver_kw
+                self.prior = marginalize(
+                    self.layout, self._fej_marg_state(), imu, proj, self.prior, remove,
+                    gravity=kw["gravity"], proj_sqrt_info=kw["proj_sqrt_info"],
+                    dep_sqrt_info=kw["dep_sqrt_info"], huber_delta=kw["huber_delta"],
+                    landmark_param=kw["landmark_param"],
+                    remove_base_mode=kw["remove_base_mode"])
+            self.margin_count += 1
         self.lmanager.pop_frame(frame.frame_id, self._cam_pose_of())
         del self.frames[slot]
         slot_map = list(range(self.layout.W))
         del slot_map[slot]
         slot_map.append(-1)
         self._apply_slot_map(slot_map)
+
+    def _fej_marg_state(self) -> VIOState:
+        """The state a marginalization linearizes at: the frames the prior
+        carries at their first estimates (reference
+        replacetoPrevLinearizedPoints, prior_factor.cpp:183+) when FEJ is on."""
+        prior = self.prior
+        if not self.cfg.estimator.enable_fej or prior is None:
+            return self.state
+        carried = prior.lin.frame_valid[:, None]
+        return self.state._replace(
+            poses=torch.where(carried, prior.lin.poses, self.state.poses),
+            sb=torch.where(carried, prior.lin.sb, self.state.sb))
 
     def _apply_slot_map(self, slot_map):
         poses = self._np(self.state.poses)
@@ -662,7 +795,9 @@ class D2Estimator:
             frame_valid=self._t(new_fv, torch.bool),
         )
         self.fej_poses, self.fej_sb = new_fej_p, new_fej_sb
-        # compose the shift into the prior's pending permutation
+        self._meas_stale = True
+        # compose the shift into the prior's pending permutation (the
+        # consensus duals are keyed by frame id: nothing to move there)
         sm = np.asarray(slot_map, np.int64)
         if self._pending_perm is None:
             self._pending_perm = sm
@@ -725,6 +860,7 @@ class D2Estimator:
         for lm in self.lmanager.db.values():
             if lm.obs and lm.anchor.frame_id in moved_fids and lm.position is not None:
                 lm.position = np_lie.pose_apply(T, lm.position)
+        self._meas_stale = True
 
     # ------------------------------------------------------------------
     # outputs

@@ -14,9 +14,9 @@ the CPU.
   ``netvlad_apply`` on that frame's left image; each landmark enters a
   keyframe's entry once; the PGO runs on the background worker
   (``pgo_async``).
-* The modes not ported yet (the multi-robot estimators, DPGO) raise
-  ``NotImplementedError``; SuperGlue and a transport run a few frames;
-  without a card the system needs ``device="cpu"``.
+* Every mode builds on the CPU and runs a few frames: the multi-robot
+  estimators ("distributed", "server"), DPGO, SuperGlue local and remote,
+  a transport, RGB-D; without a card the system needs ``device="cpu"``.
 """
 import os
 
@@ -273,27 +273,23 @@ def oracle_stereo_run(n_frames=6, transports=(None,), loop_cfg=None, img=None, *
     dict(estimation_mode="distributed"), dict(estimation_mode="server"), dict(enable_dpgo=True),
     dict(enable_superglue_local=True), dict(enable_superglue_remote=True), "transport",
     "input_rgbd"])
-def test_modes_not_ported_raise(change):
-    """The multi-robot estimators and DPGO raise; the cases ported since
-    (RGB-D; SuperGlue local and remote and a transport, this slice) build
-    on the CPU and run a few frames."""
-    from d2slam_tpu_torch.config import D2Config
-    from d2slam_tpu_torch.runtime.system import D2SLAMSystem, SystemConfig
-    from d2slam_tpu_torch.utils.sim import default_extrinsics
+def test_modes_build_and_run(change):
+    """Each mode builds on the CPU and runs a few frames: the multi-robot
+    estimators and DPGO (their depth is tests/test_torch_distributed_system.py),
+    RGB-D, SuperGlue local and remote, a transport."""
+    from d2slam_tpu_torch.comm.transport import LocalBus
 
     if change == "input_rgbd":
-        # ported: the RGB-D path returns odometry (its parity with the
-        # JAX package is tests/test_torch_rgbd.py)
+        # the RGB-D path returns odometry (its parity with the JAX package
+        # is tests/test_torch_rgbd.py)
         from tests.test_torch_rgbd import rgbd_system_run
 
         stamps, poses, _, _ = rgbd_system_run(n_frames=6)
         assert len(stamps) >= 5 and np.isfinite(poses).all()
         return
     if change == "transport":
-        # ported: two robots on a LocalBus hear each other's keyframes
-        # (the swarm's parity is tests/test_torch_swarm.py)
-        from d2slam_tpu_torch.comm.transport import LocalBus
-
+        # two robots on a LocalBus hear each other's keyframes (the swarm's
+        # parity is tests/test_torch_swarm.py)
         bus = LocalBus()
         systems = oracle_stereo_run(transports=(bus.endpoint(0), bus.endpoint(1)))
         for s, peer in zip(systems, (1, 0)):
@@ -301,25 +297,56 @@ def test_modes_not_ported_raise(change):
             assert len(s.trajectory(drone_id=peer, optimized=False)[0]) >= 3
             assert not s.remote_images   # send_img is off
         return
-    if change.get("enable_superglue_local") or change.get("enable_superglue_remote"):
-        # ported: the shipped compact SuperGlue matches the tracker's
-        # keyframe gaps (local) or the loop candidates (remote; the
-        # retrieval gate is opened so every keyframe is a candidate);
-        # parity with the JAX matcher is tests/test_torch_superglue.py
-        from d2slam_tpu_torch.frontend.loop_detector import LoopDetectorConfig
-
-        loop_cfg = LoopDetectorConfig(desc_dim=256, gdesc_dim=1024, netvlad_thres=-1.0,
-                                      min_gap_frames=1)
-        (s,) = oracle_stereo_run(loop_cfg=loop_cfg, superglue_weights=os.path.join(
-            REPO, "weights", "superglue_synth.npz"), **change)
-        assert s.superglue is not None and s.superglue.cfg.num_layers == 3
-        assert s.superglue.calls >= 3 and s.estimator.initialized
-        assert (s.tracker.matcher_fn is not None) == bool(change.get("enable_superglue_local"))
-        assert (s.detector.matcher_fn is not None) == bool(change.get("enable_superglue_remote"))
+    if change.get("estimation_mode") == "distributed":
+        # robots stepped one after the other: each sub-step waits its short
+        # timeout for the peer's copy and averages what arrived
+        bus = LocalBus()
+        systems = oracle_stereo_run(transports=(bus.endpoint(0), bus.endpoint(1)),
+                                    assume_common_world=True, max_drones=2,
+                                    consensus_timeout_ms=5, **change)
+        for s, peer in zip(systems, (1, 0)):
+            assert type(s.estimator).__name__ == "SolveAllEstimator"
+            assert s.estimator.initialized and s.estimator._consensus_token >= 1
+            assert peer in {f.drone_id for f in s.estimator.frames}
         return
-    with pytest.raises(NotImplementedError, match="multi-robot slice"):
-        D2SLAMSystem(D2Config(), SystemConfig(**change), default_extrinsics(), None,
-                     extract_fn=lambda img, cam: None, device="cpu")
+    if change.get("estimation_mode") == "server":
+        from d2slam_tpu_torch.config import D2Config
+        from d2slam_tpu_torch.runtime.system import D2SLAMSystem, SystemConfig
+        from d2slam_tpu_torch.utils.sim import default_extrinsics
+
+        bus = LocalBus()
+        server = D2SLAMSystem(D2Config(), SystemConfig(drone_id=9, assume_common_world=True,
+                                                       broadcast=False, max_drones=2, **change),
+                              default_extrinsics(), None, extract_fn=lambda img, cam: None,
+                              transport=bus.endpoint(9), device="cpu")
+        oracle_stereo_run(transports=(bus.endpoint(0), bus.endpoint(1)),
+                          assume_common_world=True)
+        server.poll_network(now=1.0)
+        fused = server.solve_server()
+        assert set(fused) == {0, 1} and all(np.isfinite(o.pose).all() for o in fused.values())
+        return
+    if change.get("enable_dpgo"):
+        bus = LocalBus()
+        systems = oracle_stereo_run(transports=(bus.endpoint(0), bus.endpoint(1)),
+                                    assume_common_world=True, **change)
+        for s in systems:
+            assert s.dpgo is not None and s.dpgo.iteration >= 1 and s.pgo_solve_count >= 1
+            assert np.isfinite(s.trajectory()[1]).all()
+        return
+    # the shipped compact SuperGlue matches the tracker's keyframe gaps
+    # (local) or the loop candidates (remote; the retrieval gate is opened
+    # so every keyframe is a candidate); parity with the JAX matcher is
+    # tests/test_torch_superglue.py
+    from d2slam_tpu_torch.frontend.loop_detector import LoopDetectorConfig
+
+    loop_cfg = LoopDetectorConfig(desc_dim=256, gdesc_dim=1024, netvlad_thres=-1.0,
+                                  min_gap_frames=1)
+    (s,) = oracle_stereo_run(loop_cfg=loop_cfg, superglue_weights=os.path.join(
+        REPO, "weights", "superglue_synth.npz"), **change)
+    assert s.superglue is not None and s.superglue.cfg.num_layers == 3
+    assert s.superglue.calls >= 3 and s.estimator.initialized
+    assert (s.tracker.matcher_fn is not None) == bool(change.get("enable_superglue_local"))
+    assert (s.detector.matcher_fn is not None) == bool(change.get("enable_superglue_remote"))
 
 
 def test_system_needs_a_card_or_cpu(monkeypatch):

@@ -122,10 +122,37 @@ the hand-written stem kernel is on the path:
       prints ms per frame per robot, consensus ms per solve, DPGO ms and
       launches per round and each robot's VIO error after alignment.
 
+  (o) the tools: (o.1) the MSCKF at its default size (10 clones, 32
+      landmarks, a 75x75 P, float64) over 40 keyframes of
+      tests/test_msckf.py's circle with pixel noise, against the same
+      flight on the CPU and the JAX test's position pin, with ms and
+      launches per propagate (50 IMU samples), augment and update; (o.2)
+      SuperPoint (weights/superpoint_synth.npz) written as an ONNX graph
+      with the port's writer at 1x1x480x640, read back and lowered on the
+      card, against the native float32 model (logits, descriptors,
+      keypoints), with ms per extraction for the ONNX, native float32
+      and native bf16 (stem kernel) routes; NetVLAD
+      (weights/netvlad_synth.npz) the same way with its PCA, against the
+      native module; (o.3) the SuperPoint graph quantized to int8 with
+      tests/test_quantize.py's pins, its activations calibrated over 4
+      frames; (o.4) pinhole, Kannala-Brandt and stereo-extrinsic
+      calibration from 30 checkerboard views at 640x480 and the vignette
+      of a 480x640 mean image, card against CPU, with
+      tests/test_calibration.py's pins and ms per LM iteration; (o.5)
+      ``train_superpoint``, ``train_netvlad`` and ``train_superglue`` at
+      their default widths for 24 steps each: the first step's loss
+      against the CPU's and the loss falling, ms per step with the host
+      batch apart.
+
+The phases run in the order a, b-c, d, e, f, j, g, h, i, k, l, m, o, n;
+n.2's three processes run in the background from the end of m.1 until
+o is done, so the times m.2, m.3 and o print carry their load on the
+host and the card (m.1 and n.1 are timed alone).
+
 The native pipeline library and LK are built with the kernels in (a).
-The launch counts of (c), (d), (e), (f), (h), (j), (k), (l), (m) and (n) go
-into the ``kernels`` line: each count is set to 0 just before its path
-runs and read just after.
+The launch counts of (c), (d), (e), (f), (h), (j), (k), (l), (m), (n) and
+(o) go into the ``kernels`` line: each count is set to 0 just before its
+path runs and read just after.
 
 Every phase prints one line; any failure exits non-zero. The last three
 lines are the ``kernels`` JSON, the card's name and power limit from
@@ -134,13 +161,14 @@ nvidia-smi, and the device JSON.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import tempfile
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -162,14 +190,40 @@ from d2slam_tpu_torch.frontend.loop_detector import LoopDetectorConfig  # noqa: 
 from d2slam_tpu_torch.frontend import superglue as sg  # noqa: E402
 from d2slam_tpu_torch.frontend.matching import match_descriptors_radius  # noqa: E402
 from d2slam_tpu_torch.frontend.pnp import ransac_pnp_body  # noqa: E402
+from d2slam_tpu_torch.frontend.netvlad import (  # noqa: E402
+    NetVLAD,
+    NetVLADConfig,
+    netvlad_from_onnx,
+    netvlad_init,
+)
 from d2slam_tpu_torch.frontend.superpoint import (  # noqa: E402
+    OnnxSuperPoint,
     SuperPoint,
     SuperPointConfig,
     load_params,
+    random_params,
+    superpoint_extract,
+    superpoint_from_onnx,
 )
 from d2slam_tpu_torch.frontend.tracker import FeatureTracker, TrackerConfig  # noqa: E402
-from d2slam_tpu_torch.frontend.train_frontend import load_weights  # noqa: E402
-from d2slam_tpu_torch.geometry.cameras import KBParams, PinholeParams  # noqa: E402
+from d2slam_tpu_torch.frontend.train_frontend import (  # noqa: E402
+    load_weights,
+    netvlad_batch,
+    netvlad_loss,
+    superglue_bank,
+    superglue_loss,
+    superpoint_batch,
+    superpoint_loss,
+    train_netvlad,
+    train_superglue,
+    train_superpoint,
+)
+from d2slam_tpu_torch.geometry.cameras import (  # noqa: E402
+    KBParams,
+    PinholeParams,
+    kb_project,
+    pinhole_project,
+)
 from d2slam_tpu_torch.depth.fisheye_undist import remap_bilinear  # noqa: E402
 from d2slam_tpu_torch.depth.hitnet import HitNetConfig, hitnet_apply, hitnet_init  # noqa: E402
 from d2slam_tpu_torch.depth.quadcam import (  # noqa: E402
@@ -184,7 +238,7 @@ from d2slam_tpu_torch.depth.stereo import (  # noqa: E402
     points_from_disparity,
 )
 from d2slam_tpu_torch.ops import stereo_bm as bm  # noqa: E402
-from d2slam_tpu_torch.geometry.lie import pose_boxplus  # noqa: E402
+from d2slam_tpu_torch.geometry.lie import pose_boxplus, so3_exp_quat  # noqa: E402
 from d2slam_tpu_torch.parallel import ConsensusCarry, admm_vio_round  # noqa: E402
 from d2slam_tpu_torch.pgo import PGOEdges, PGOLayout, PGOState, solve_pgo, solve_pgo_pcg  # noqa: E402
 from d2slam_tpu_torch.pgo.distributed import (  # noqa: E402
@@ -201,6 +255,20 @@ from d2slam_tpu_torch.runtime.depth_replay import (  # noqa: E402
 )
 from d2slam_tpu_torch.runtime.system import D2SLAMSystem, SystemConfig  # noqa: E402
 from d2slam_tpu_torch.ops import superpoint_stem as stem  # noqa: E402
+from d2slam_tpu_torch.tools import calibration  # noqa: E402
+from d2slam_tpu_torch.tools.calibration import (  # noqa: E402
+    calibrate_kb,
+    calibrate_pinhole,
+    calibrate_stereo_extrinsic,
+    calibrate_vignette,
+)
+from d2slam_tpu_torch.tools.onnx_io import OnnxAttr, OnnxGraph, OnnxNode, save_onnx  # noqa: E402
+from d2slam_tpu_torch.tools.quantize import (  # noqa: E402
+    calibrate_activations,
+    quantization_report,
+    quantize_module,
+    save_calibration_table,
+)
 from d2slam_tpu_torch.utils import np_lie  # noqa: E402
 from d2slam_tpu_torch.utils.native import nvcc  # noqa: E402
 from d2slam_tpu_torch.utils.render import (  # noqa: E402
@@ -231,6 +299,16 @@ from d2slam_tpu_torch.solver.state import tree_map  # noqa: E402
 from d2slam_tpu_torch.vins.types import global_frame_id  # noqa: E402
 from d2slam_tpu_torch.vins.estimator import D2Estimator  # noqa: E402
 from d2slam_tpu_torch.vins.initialization import solve_relative_pose  # noqa: E402
+from d2slam_tpu_torch.vins.msckf import (  # noqa: E402
+    GRAVITY_Z,
+    MSCKFConfig,
+    MSCKFState,
+    msckf_augment,
+    msckf_init,
+    msckf_propagate,
+    msckf_update,
+)
+from d2slam_tpu_torch.utils.perf import PerfTracker  # noqa: E402
 
 WEIGHTS = os.path.join(REPO, "weights", "superpoint_synth.npz")
 NETVLAD_WEIGHTS = os.path.join(REPO, "weights", "netvlad_synth.npz")
@@ -330,6 +408,23 @@ N_SERVER_VS_OWN, N_SERVER_ATE = 0.5, 0.25
 N_DPGO_MIN_SHARED, N_DPGO_MEDIAN = 10, 0.25
 N_DIST_ERR_B = 0.6
 N_FULL_FRAMES = 20
+# phase o: MSCKF over 40 keyframes of tests/test_msckf.py's circle with its
+# pixel noise, the card's state and P within MSCKF_CARD_CPU_REL of the
+# CPU's (float64, relative to each tensor's largest entry; the nullspace
+# bases differ between cuSOLVER and LAPACK, the update does not) and the
+# JAX test's position pin (m); the ONNX SuperPoint's logits and
+# descriptors within ONNX_REL of the native float32 model's (both f32,
+# TF32 off; two cuDNN algorithm choices), and its keypoints: at least
+# ONNX_KPT_AGREE of the native ones within 0.1 px; the ONNX NetVLAD's
+# cosine to the native module's; tests/test_quantize.py's pins for the
+# int8 graph; calibration from CALIB_VIEWS views, card against CPU
+# (absolute, px and coefficients); TRAIN_STEPS per trainer, the first
+# step's loss against the CPU's (relative, float32)
+MSCKF_KEYFRAMES, MSCKF_NOISE, MSCKF_POS_PIN, MSCKF_CARD_CPU_REL = 40, 1.5e-3, 0.15, 1e-9
+ONNX_REL, ONNX_KPT_AGREE, NETVLAD_COS = 1e-4, 0.99, 1 - 1e-4
+QUANT_COMPRESSION, QUANT_REL_ERR = 3.0, 0.05
+CALIB_VIEWS, CALIB_CARD_CPU = 30, 1e-6
+TRAIN_STEPS, TRAIN_FIRST_REL = 24, 1e-4
 
 
 def fail(msg):
@@ -1882,12 +1977,11 @@ def swarm_run(params, dev, H, W, fx, n_frames, compute_dtype, superglue_local=Fa
     return res, systems
 
 
-def phase_swarm(params, dev):
-    """(m) the swarm on the card: SuperGlue alone (m.1); the JAX golden
-    textured swarm at 240x320 with the test's float32 backbone, gated by
-    its pins (m.2); two robots at 480x640 with the bf16 stem, SuperGlue
-    local and remote (m.3)."""
-    alone = superglue_alone(dev)
+def phase_swarm(params, dev, alone):
+    """(m) the swarm on the card: ``alone``, SuperGlue alone (m.1,
+    ``superglue_alone``); the JAX golden textured swarm at 240x320 with
+    the test's float32 backbone, gated by its pins (m.2); two robots at
+    480x640 with the bf16 stem, SuperGlue local and remote (m.3)."""
     golden, _ = swarm_run(params, dev, 240, 320, 220.0, SWARM_GOLDEN_FRAMES, "float32")
     full, systems = swarm_run(params, dev, 480, 640, 440.0, SWARM_FULL_FRAMES, "bfloat16",
                               superglue_local=True)
@@ -2378,30 +2472,523 @@ def _scenario_in_child(name):
     return fn(torch.device("cuda"))
 
 
-def feature_scenarios():
-    """(n.2) the three feature-level scenarios, each in a process of its
-    own, side by side: each is launch-bound on one host core and leaves
-    the card idle most of the time (their wall times are read with that
-    sharing). A scenario's failure fails the run."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+FEATURE_SCENARIOS = ("server", "dpgo", "distributed")
 
-    names = ("server", "dpgo", "distributed")
+
+def feature_scenarios(pool):
+    """(n.2) start the three feature-level scenarios on ``pool``, each in
+    a process of its own, side by side: each is launch-bound on one host
+    core and leaves the card idle most of the time (their wall times are
+    read with that sharing). Returns a function that waits for them and
+    gives their results; a scenario's failure fails the run."""
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(len(names), mp_context=multiprocessing.get_context("spawn")) as ex:
-        futures = {n: ex.submit(_scenario_in_child, n) for n in names}
+    futures = {n: pool.submit(_scenario_in_child, n) for n in FEATURE_SCENARIOS}
+
+    def results():
         res = {n: f.result() for n, f in futures.items()}
-    res["side_by_side_wall_s"] = time.perf_counter() - t0
-    return res
+        res["side_by_side_wall_s"] = time.perf_counter() - t0
+        return res
+    return results
 
 
-def phase_multirobot(params, dev):
+# ---------------------------------------------------------------------------
+# (o) the tools: MSCKF, the ONNX runtime, quantization, calibration, training
+# ---------------------------------------------------------------------------
+
+# o.1: tests/test_msckf.py's circle (radius 3 m, 0.5 rad/s, 200 Hz IMU,
+# a keyframe every 0.25 s)
+MSCKF_IMU_HZ, MSCKF_KF_DT, MSCKF_RADIUS, MSCKF_OMEGA = 200.0, 0.25, 3.0, 0.5
+
+
+def _circle_truth(t):
+    c, s = np.cos(MSCKF_OMEGA * t), np.sin(MSCKF_OMEGA * t)
+    p = np.array([MSCKF_RADIUS * c, MSCKF_RADIUS * s, 1.5])
+    v = np.array([-MSCKF_RADIUS * MSCKF_OMEGA * s, MSCKF_RADIUS * MSCKF_OMEGA * c, 0.0])
+    a = np.array([-MSCKF_RADIUS * MSCKF_OMEGA**2 * c, -MSCKF_RADIUS * MSCKF_OMEGA**2 * s, 0.0])
+    yaw = MSCKF_OMEGA * t + np.pi / 2
+    return p, v, a, np.array([0.0, 0.0, np.sin(yaw / 2), np.cos(yaw / 2)])
+
+
+def _circle_imu(t0, t1, n):
+    """Perfect body-frame IMU samples over [t0, t1] (tests/test_msckf.py)."""
+    ts = np.linspace(t0, t1, n, endpoint=False) + (t1 - t0) / n / 2
+    g = np.array([0.0, 0.0, GRAVITY_Z])
+    accs = [np_lie.quat_to_rotmat(q).T @ (a - g)
+            for _, _, a, q in (_circle_truth(t) for t in ts)]
+    return (np.full(n, (t1 - t0) / n), np.tile([0.0, 0.0, MSCKF_OMEGA], (n, 1)),
+            np.stack(accs))
+
+
+def _msckf_flight(dev, cfg, n_kf, noise, seed=3, timing=None):
+    """The noisy circular flight through the filter on ``dev``: propagate
+    over each keyframe interval, clone, and update from keyframe 3 on.
+    ``timing``: lists of host ms per call (each call synchronized)."""
+    p0, v0, _, q0 = _circle_truth(0.0)
+    st = msckf_init(cfg, q0=q0, p0=p0, v0=v0, device=dev)
+    n = cfg.max_landmarks
+    rng = np.random.RandomState(seed)      # tests/test_msckf.py::make_landmarks
+    ang, r, z = rng.uniform(0, 2 * np.pi, n), rng.uniform(6.0, 9.0, n), rng.uniform(0.0, 3.0, n)
+    lms = np.stack([r * np.cos(ang), r * np.sin(ang), z], axis=1)
+    rng = np.random.RandomState(seed + 1)
+    obs_uv = np.zeros((n, cfg.num_clones, 2))
+    obs_mask = np.zeros((n, cfg.num_clones), bool)
+
+    def timed(key, fn):
+        if timing is None:
+            return fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        timing[key].append((time.perf_counter() - t0) * 1000.0)
+        return out
+
+    n_imu = int(MSCKF_IMU_HZ * MSCKF_KF_DT)
+    for k in range(n_kf):
+        t0, t1 = k * MSCKF_KF_DT, (k + 1) * MSCKF_KF_DT
+        imu = [torch.as_tensor(x).to(dev) for x in _circle_imu(t0, t1, n_imu)]
+        st = timed("propagate", lambda: msckf_propagate(st, cfg, *imu))
+        st, _ = timed("augment", lambda: msckf_augment(st, cfg, t1))
+        slot = k % cfg.num_clones          # the FIFO cursor, known on the host
+        p_t, _, _, q_t = _circle_truth(t1)
+        pc = (lms - p_t) @ np_lie.quat_to_rotmat(q_t)
+        obs_uv[:, slot] = pc[:, :2] / np.maximum(pc[:, 2:3], 1e-9) + rng.randn(n, 2) * noise
+        obs_mask[:, slot] = pc[:, 2] > 0.3
+        if k >= 3:
+            uv, m = torch.as_tensor(obs_uv).to(dev), torch.as_tensor(obs_mask).to(dev)
+            st = timed("update", lambda: msckf_update(st, cfg, uv, m))
+    return st, _circle_truth(n_kf * MSCKF_KF_DT)
+
+
+def tools_msckf(dev):
+    """o.1: the filter at its default size on the card against the same
+    flight on the CPU; ms and launches per step."""
+    cfg = MSCKFConfig()
+    timing = {"propagate": [], "augment": [], "update": []}
+    st, (p_t, _, _, _) = _msckf_flight(dev, cfg, MSCKF_KEYFRAMES, MSCKF_NOISE, timing=timing)
+    st_cpu, _ = _msckf_flight(torch.device("cpu"), cfg, MSCKF_KEYFRAMES, MSCKF_NOISE)
+    rel = max(float((getattr(st, f).cpu().double() - getattr(st_cpu, f).double()).abs().max()
+                    / max(float(getattr(st_cpu, f).double().abs().max()), 1e-300))
+              for f in MSCKFState._fields if f not in ("clone_valid", "next_slot"))
+    same_slots = (torch.equal(st.clone_valid.cpu(), st_cpu.clone_valid)
+                  and int(st.next_slot) == int(st_cpu.next_slot))
+    pos_err = float(np.linalg.norm(st.p.cpu().numpy() - p_t))
+    imu = [torch.as_tensor(x).to(dev) for x in _circle_imu(0.0, MSCKF_KF_DT, 50)]
+    uv = torch.zeros((cfg.max_landmarks, cfg.num_clones, 2), dtype=torch.float64, device=dev)
+    m = torch.zeros((cfg.max_landmarks, cfg.num_clones), dtype=torch.bool, device=dev)
+    out = dict(
+        clones=cfg.num_clones, landmarks=cfg.max_landmarks, P=list(st.P.shape),
+        keyframes=MSCKF_KEYFRAMES, card_vs_cpu_rel=rel, pos_err_m=pos_err,
+        trace_P_pos=float(torch.trace(st.P[3:6, 3:6])),
+        same_clones=same_slots,
+        **{f"{k}_ms": float(np.mean(v)) for k, v in timing.items()},
+        propagate_launches=count_launches(lambda: msckf_propagate(st, cfg, *imu)),
+        augment_launches=count_launches(lambda: msckf_augment(st, cfg, 1.0)),
+        update_launches=count_launches(lambda: msckf_update(st, cfg, uv, m)))
+    if not (rel <= MSCKF_CARD_CPU_REL and same_slots):
+        fail(f"MSCKF card against CPU: {out}")
+    if not pos_err < MSCKF_POS_PIN:
+        fail(f"MSCKF position error out of tests/test_msckf.py's pin: {out}")
+    return out
+
+
+def superpoint_onnx_graph(params, H, W):
+    """SuperPoint of ``params`` (the JAX layout) as an ONNX graph: the VGG
+    trunk (3x3 convs, ReLU, 2x2 max-pools), the 65-logit head ("semi")
+    and the 256-d descriptor head ("desc", not normalized: the loader
+    normalizes), input 1x1xHxW."""
+    nodes, init = [], {}
+
+    def conv(x, name):
+        w = np.asarray(params[name]["w"], np.float32)          # HWIO
+        init[f"{name}_w"] = np.ascontiguousarray(w.transpose(3, 2, 0, 1))
+        init[f"{name}_b"] = np.asarray(params[name]["b"], np.float32)
+        k = w.shape[0] // 2
+        nodes.append(OnnxNode("Conv", [x, f"{name}_w", f"{name}_b"], [name],
+                              attrs={"pads": OnnxAttr("pads", ints=(k, k, k, k))}))
+        return name
+
+    def relu(x):
+        nodes.append(OnnxNode("Relu", [x], [x + "_r"]))
+        return x + "_r"
+
+    def pool(x):
+        nodes.append(OnnxNode("MaxPool", [x], [x + "_p"], attrs={
+            "kernel_shape": OnnxAttr("kernel_shape", ints=(2, 2)),
+            "strides": OnnxAttr("strides", ints=(2, 2))}))
+        return x + "_p"
+
+    x = "image"
+    for name in ("conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b", "conv4a", "conv4b"):
+        x = relu(conv(x, name))
+        if name in ("conv1b", "conv2b", "conv3b"):
+            x = pool(x)
+    semi = conv(relu(conv(x, "convPa")), "convPb")
+    desc = conv(relu(conv(x, "convDa")), "convDb")
+    nodes.append(OnnxNode("Identity", [semi], ["semi"]))
+    nodes.append(OnnxNode("Identity", [desc], ["desc"]))
+    return OnnxGraph(nodes=nodes, initializers=init, inputs=[("image", (1, 1, H, W))],
+                     outputs=["semi", "desc"])
+
+
+def netvlad_onnx_graph(params, H, W):
+    """NetVLAD of ``params`` (weights/netvlad_synth.npz's layout) as the
+    reference's MobileNetVLAD export: NHWC "image:0" [1, H, W, 1] ->
+    "descriptor:0" [1, K * D] (the backbone with XLA ``SAME`` padding and
+    ReLU6, the soft-assignment VLAD layer, intra- and L2 normalization;
+    the PCA is the loader's ``pca=``)."""
+    nodes, init = [], {}
+    nodes.append(OnnxNode("Transpose", ["image:0"], ["x0"],
+                          attrs={"perm": OnnxAttr("perm", ints=(0, 3, 1, 2))}))
+
+    def conv(x, out, p, stride, group):
+        w = np.asarray(p["w"], np.float32)
+        init[out + "_w"] = np.ascontiguousarray(w.transpose(3, 2, 0, 1))
+        init[out + "_b"] = np.asarray(p["b"], np.float32)
+        nodes.append(OnnxNode("Conv", [x, out + "_w", out + "_b"], [out], attrs={
+            "strides": OnnxAttr("strides", ints=(stride, stride)),
+            "auto_pad": OnnxAttr("auto_pad", s=b"SAME_UPPER"),
+            "group": OnnxAttr("group", i=group)}))
+        nodes.append(OnnxNode("Clip", [out, "zero", "six"], [out + "_r"]))
+        return out + "_r"
+
+    init["zero"], init["six"] = np.array(0.0, np.float32), np.array(6.0, np.float32)
+    x = "x0"
+    for name, stride in (("stem", 2), ("ds1", 2), ("ds2", 2), ("ds3", 2), ("ds4", 1)):
+        p = params[name]
+        if "dw" in p:
+            x = conv(x, name + "_dw", p["dw"], stride, np.asarray(p["dw"]["w"]).shape[-1])
+            x = conv(x, name + "_pw", p["pw"], 1, 1)
+        else:
+            x = conv(x, name, p, stride, 1)
+    K, D = np.asarray(params["vlad_centers"]).shape
+    init["assign_w"] = np.ascontiguousarray(
+        np.asarray(params["vlad_assign"]["w"], np.float32).transpose(3, 2, 0, 1))
+    init["assign_b"] = np.asarray(params["vlad_assign"]["b"], np.float32)
+    init["centers"] = np.asarray(params["vlad_centers"], np.float32)[None]
+    init["shape_k"] = np.array([1, K, -1], np.int64)
+    init["shape_d"] = np.array([1, D, -1], np.int64)
+    init["shape_flat"] = np.array([1, K * D], np.int64)
+    init["eps"] = np.array(1e-12, np.float32)
+    for n in (
+            OnnxNode("Conv", [x, "assign_w", "assign_b"], ["logits"]),
+            OnnxNode("Reshape", ["logits", "shape_k"], ["logits_f"]),
+            OnnxNode("Softmax", ["logits_f"], ["assign"], attrs={"axis": OnnxAttr("axis", i=1)}),
+            OnnxNode("Reshape", [x, "shape_d"], ["feat_f"]),
+            OnnxNode("Transpose", ["feat_f"], ["feat_t"], attrs={"perm": OnnxAttr("perm", ints=(0, 2, 1))}),
+            OnnxNode("MatMul", ["assign", "feat_t"], ["agg"]),
+            OnnxNode("ReduceSum", ["assign"], ["asum"], attrs={
+                "axes": OnnxAttr("axes", ints=(2,)), "keepdims": OnnxAttr("keepdims", i=1)}),
+            OnnxNode("Mul", ["asum", "centers"], ["shift"]),
+            OnnxNode("Sub", ["agg", "shift"], ["V"]),
+            OnnxNode("ReduceL2", ["V"], ["Vn"], attrs={
+                "axes": OnnxAttr("axes", ints=(2,)), "keepdims": OnnxAttr("keepdims", i=1)}),
+            OnnxNode("Max", ["Vn", "eps"], ["Vn_c"]),
+            OnnxNode("Div", ["V", "Vn_c"], ["Vu"]),
+            OnnxNode("Reshape", ["Vu", "shape_flat"], ["flat"]),
+            OnnxNode("ReduceL2", ["flat"], ["fn"], attrs={
+                "axes": OnnxAttr("axes", ints=(1,)), "keepdims": OnnxAttr("keepdims", i=1)}),
+            OnnxNode("Max", ["fn", "eps"], ["fn_c"]),
+            OnnxNode("Div", ["flat", "fn_c"], ["descriptor:0"])):
+        nodes.append(n)
+    return OnnxGraph(nodes=nodes, initializers=init, inputs=[("image:0", (1, H, W, 1))],
+                     outputs=["descriptor:0"])
+
+
+def _keypoint_agreement(ref, got, tol=0.1):
+    """Share of ``ref``'s valid keypoints (a SuperPointOutput of one
+    image) that ``got`` has within ``tol`` px."""
+    a = ref.kpts[0][ref.valid[0]]
+    b = got.kpts[0][got.valid[0]]
+    if len(a) == 0 or len(b) == 0:
+        return 0.0
+    return float((torch.cdist(a.double(), b.double()).min(dim=1).values <= tol).float().mean())
+
+
+def tools_onnx(params, dev, tmp):
+    """o.2 and o.3: SuperPoint and NetVLAD as ONNX graphs written with the
+    port's writer, read back and lowered on the card, against the native
+    modules; SuperPoint's graph quantized to int8."""
+    H, W = 480, 640
+    sim = CircleSim(seed=7, baseline=0.2, n_landmarks=300)
+    render = blob_pairs(sim, H, W, 440.0)
+    frames = [torch.as_tensor(render(0.4 * i)[0], dtype=torch.float32).to(dev)[None]
+              for i in range(5)]
+    img = frames[0]
+    sp_path = os.path.join(tmp, "superpoint.onnx")
+    save_onnx(superpoint_onnx_graph(params, H, W), sp_path)
+    cfg32 = SuperPointConfig()
+    onnx_sp = superpoint_from_onnx(sp_path, cfg32, device=dev)
+    native32 = SuperPoint(params, cfg32, device=dev)
+    native16 = SuperPoint(params, SuperPointConfig(compute_dtype="bfloat16"), device=dev)
+    with torch.no_grad():
+        (so, do), (sn, dn) = onnx_sp(img), native32(img)
+        rel_semi = float((so - sn).abs().max() / sn.abs().max())
+        rel_desc = float((do - dn).abs().max() / dn.abs().max())
+        ko, kn = superpoint_extract(onnx_sp, img), superpoint_extract(native32, img)
+        stem.launches = 0
+        kb = superpoint_extract(native16, img)
+        bf16_stem_launches = stem.launches
+    agree = _keypoint_agreement(kn, ko)
+    sp = dict(rel_semi=rel_semi, rel_desc=rel_desc, keypoints_native=int(kn.valid.sum()),
+              keypoint_agreement=agree, bf16_agreement=_keypoint_agreement(kn, kb),
+              onnx_ms=time_ms(lambda: superpoint_extract(onnx_sp, img), iters=20),
+              native_f32_ms=time_ms(lambda: superpoint_extract(native32, img), iters=20),
+              native_bf16_ms=time_ms(lambda: superpoint_extract(native16, img), iters=20),
+              bf16_stem_launches=bf16_stem_launches,
+              onnx_launches=count_launches(lambda: superpoint_extract(onnx_sp, img)))
+    if not (rel_semi <= ONNX_REL and rel_desc <= ONNX_REL and agree >= ONNX_KPT_AGREE):
+        fail(f"ONNX SuperPoint against the native float32 model: {sp}")
+    if bf16_stem_launches != 1:
+        fail(f"bf16 extraction launched the stem {bf16_stem_launches} times, not once")
+
+    nv_params = load_weights(NETVLAD_WEIGHTS)
+    nv_path = os.path.join(tmp, "netvlad.onnx")
+    save_onnx(netvlad_onnx_graph(nv_params, H, W), nv_path)
+    pca = (nv_params["pca"]["mean"], nv_params["pca"]["proj"])
+    onnx_nv = netvlad_from_onnx(nv_path, pca=pca, device=dev)
+    native_nv = NetVLAD(nv_params, device=dev)
+    with torch.no_grad():
+        vo = onnx_nv(img)[0].double()
+        vn = native_nv(img)[0, :vo.shape[0]].double()   # the gate's constant last
+    cos = float(vo @ vn / (vo.norm() * vn.norm()))
+    nv = dict(dim=int(vo.shape[0]), cosine=cos,
+              onnx_ms=time_ms(lambda: onnx_nv(img), iters=20),
+              native_ms=time_ms(lambda: native_nv(img), iters=20))
+    if not cos >= NETVLAD_COS:
+        fail(f"ONNX NetVLAD against the native module: {nv}")
+
+    module = onnx_sp.module
+    qmod = quantize_module(module)
+    x = img[None]
+    rep = quantization_report(module, qmod, (x,))
+    table = calibrate_activations(module, [(f[None],) for f in frames[1:]])
+    save_calibration_table(table, os.path.join(tmp, "calib.json"))
+    quant_sp = OnnxSuperPoint(qmod, cfg32)
+    with torch.no_grad():
+        kq = superpoint_extract(quant_sp, img)
+    q = dict(report=rep, calibrated_tensors=len(table),
+             calibration_ranges={k: table[k] for k in ("image", "semi", "desc")},
+             keypoint_agreement=_keypoint_agreement(ko, kq),
+             quantized_ms=time_ms(lambda: superpoint_extract(quant_sp, img), iters=20))
+    if not (rep["compression"] > QUANT_COMPRESSION and rep["max_rel_err"] < QUANT_REL_ERR):
+        fail(f"int8 SuperPoint out of tests/test_quantize.py's pins: {q}")
+    return sp, nv, q, bf16_stem_launches
+
+
+def _calib_board(nx=8, ny=6, square=0.04):
+    xs, ys = np.meshgrid(np.arange(nx), np.arange(ny))
+    pts = np.stack([xs, ys, np.zeros_like(xs)], -1).reshape(-1, 3) * square
+    return pts - pts.mean(axis=0)
+
+
+def _calib_views(project, params, board, n_views, seed, noise=0.1):
+    """tests/test_calibration.py::render_views: the board ~0.5 m in front
+    of the camera with a random tilt and offset, in the 640x480 image."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n_views:
+        q = so3_exp_quat(torch.as_tensor(rng.normal(0, 0.25, 3))).numpy()
+        t = np.array([rng.normal(0, 0.08), rng.normal(0, 0.06), rng.uniform(0.4, 0.7)])
+        pc = (np_lie.quat_to_rotmat(q) @ board.T).T + t
+        uv, valid = project(torch.as_tensor(pc), params)
+        uv = uv.numpy()
+        if not bool(valid.all()) or uv.min() < 10 or uv[:, 0].max() > 630 or uv[:, 1].max() > 470:
+            continue
+        out.append(uv + rng.normal(0, noise, uv.shape))
+    return out
+
+
+def _stereo_views(p0, p1, rel_gt, board, n_views, seed=5):
+    """tests/test_calibration.py::test_calibrate_stereo_extrinsic's views."""
+    rng = np.random.default_rng(seed)
+    img0, img1 = [], []
+    while len(img0) < n_views:
+        q = so3_exp_quat(torch.as_tensor(rng.normal(0, 0.2, 3))).numpy()
+        t = np.array([rng.normal(0, 0.06), rng.normal(0, 0.05), rng.uniform(0.45, 0.7)])
+        pc0 = (np_lie.quat_to_rotmat(q) @ board.T).T + t
+        pc1 = (np_lie.quat_to_rotmat(rel_gt[3:]) @ pc0.T).T + rel_gt[:3]
+        (uv0, v0), (uv1, v1) = (pinhole_project(torch.as_tensor(pc0), p0),
+                                pinhole_project(torch.as_tensor(pc1), p1))
+        uv0, uv1 = uv0.numpy(), uv1.numpy()
+        if not (bool(v0.all()) and bool(v1.all())):
+            continue
+        if min(uv0.min(), uv1.min()) < 10 or max(uv0[:, 0].max(), uv1[:, 0].max()) > 630 \
+                or max(uv0[:, 1].max(), uv1[:, 1].max()) > 470:
+            continue
+        img0.append(uv0 + rng.normal(0, 0.1, uv0.shape))
+        img1.append(uv1 + rng.normal(0, 0.1, uv1.shape))
+    return img0, img1
+
+
+def tools_calibration(dev):
+    """o.4: pinhole, Kannala-Brandt and the stereo extrinsic from 30
+    checkerboard views at 640x480, and the vignette of a 480x640 mean
+    image, each on the card against the CPU with the JAX tests' pins; ms
+    and launches per LM iteration."""
+    cpu = torch.device("cpu")
+    lm_ms = []
+    real_lm = calibration._lm_calibrate
+
+    def timed_lm(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_lm(*a, **k)
+        torch.cuda.synchronize()
+        lm_ms.append((time.perf_counter() - t0) * 1000.0 / k.get("n_iters", 30))
+        return out
+
+    board = _calib_board()
+    pin_gt = PinholeParams.make(420.0, 418.0, 325.0, 245.0, k1=-0.25, k2=0.06)
+    pin_obs = _calib_views(pinhole_project, pin_gt, board, CALIB_VIEWS, 0)
+    kb_gt = KBParams.make(200.0, 199.0, 322.0, 242.0, k2=0.02, k3=-0.004)
+    kb_board = _calib_board(square=0.08)
+    kb_obs = _calib_views(kb_project, kb_gt, kb_board, CALIB_VIEWS, 2)
+    p0 = PinholeParams(460.0, 458.0, 320.0, 240.0)
+    p1 = PinholeParams(455.0, 456.0, 318.0, 242.0)
+    q_gt = so3_exp_quat(torch.tensor([0.0, 0.02, 0.005], dtype=torch.float64)).numpy()
+    rel_gt = np.concatenate([[-0.12, 0.001, 0.002], q_gt])
+    st0, st1 = _stereo_views(p0, p1, rel_gt, board, CALIB_VIEWS)
+
+    def stereo(device):
+        return calibrate_stereo_extrinsic(
+            board, st0, st1, lambda pc: pinhole_project(pc, p0),
+            lambda pc: pinhole_project(pc, p1), 460.0, (320.0, 240.0), 455.0, (318.0, 242.0),
+            device=device)
+
+    H, W = 480, 640
+    ys, xs = np.mgrid[0:H, 0:W]
+    r2 = ((xs - W / 2) ** 2 + (ys - H / 2) ** 2) / (W / 2) ** 2
+    mean_img = 0.8 * (1.0 - 0.4 * r2 + 0.05 * r2**2)
+    calibration._lm_calibrate = timed_lm
+    try:
+        pin, pin_rms = calibrate_pinhole(board, pin_obs, (640, 480), device=dev)
+        kb, kb_rms = calibrate_kb(kb_board, kb_obs, (640, 480), f_guess=210.0, device=dev)
+        rel, st_rms = stereo(dev)
+    finally:
+        calibration._lm_calibrate = real_lm
+    coeffs, corr = calibrate_vignette(mean_img, device=dev)
+    launches = count_launches(lambda: calibrate_pinhole(board, pin_obs, (640, 480), device=dev))
+    pin_c, _ = calibrate_pinhole(board, pin_obs, (640, 480), device=cpu)
+    kb_c, _ = calibrate_kb(kb_board, kb_obs, (640, 480), f_guess=210.0, device=cpu)
+    rel_c, _ = stereo(cpu)
+    coeffs_c, _ = calibrate_vignette(mean_img, device=cpu)
+    flat = mean_img * corr.cpu().numpy()
+    gaps = dict(pinhole=float(np.abs(np.subtract(pin, pin_c)).max()),
+                kb=float(np.abs(np.subtract(kb, kb_c)).max()),
+                stereo=float(np.abs(rel - rel_c).max()),
+                vignette=float(np.abs(coeffs - coeffs_c).max()))
+    out = dict(views=CALIB_VIEWS, pinhole=[float(v) for v in pin], pinhole_rms=pin_rms,
+               kb=[float(v) for v in kb], kb_rms=kb_rms, stereo_rel=rel.tolist(),
+               stereo_rms=st_rms, vignette=coeffs.tolist(),
+               vignette_flatness=float(flat.std() / flat.mean()), card_vs_cpu=gaps,
+               lm_ms_per_iter=dict(zip(("pinhole", "kb", "stereo"), lm_ms)),
+               pinhole_launches_per_iter=launches / 30)
+    if max(gaps.values()) > CALIB_CARD_CPU:
+        fail(f"calibration card against CPU: {out}")
+    pins_ok = (pin_rms < 0.3 and abs(pin.fx - 420.0) < 4.0 and abs(pin.fy - 418.0) < 4.0
+               and abs(pin.cx - 325.0) < 4.0 and abs(pin.k1 + 0.25) < 0.03
+               and kb_rms < 0.3 and abs(kb.fx - 200.0) < 4.0 and abs(kb.cx - 322.0) < 4.0
+               and st_rms < 0.3 and np.abs(rel[:3] - rel_gt[:3]).max() < 1e-3
+               and abs(np.dot(rel[3:], rel_gt[3:])) > 1 - 1e-5
+               and out["vignette_flatness"] < 0.02)
+    if not pins_ok:
+        fail(f"calibration out of tests/test_calibration.py's pins: {out}")
+    return out
+
+
+def _train_row(name, losses, first_cpu, wall_s, perf, steps):
+    batch_ms = perf.report()["batch"]["mean_ms"]
+    step_ms = wall_s * 1000.0 / steps
+    row = dict(steps=steps, first_loss=losses[0], first_loss_cpu=first_cpu,
+               first_rel=abs(losses[0] - first_cpu) / abs(first_cpu),
+               first10=float(np.mean(losses[:10])), last10=float(np.mean(losses[-10:])),
+               ms_per_step=step_ms, host_batch_ms=batch_ms, device_ms=step_ms - batch_ms)
+    if not row["first_rel"] <= TRAIN_FIRST_REL:
+        fail(f"{name}: the first step's loss on the card against the CPU: {row}")
+    if not row["last10"] < row["first10"]:
+        fail(f"{name}: the loss did not fall over {steps} steps: {row}")
+    return row
+
+
+def tools_training(params, dev):
+    """o.5: the three trainers at their default widths on the card, a few
+    dozen steps each; the first step's loss against the same step on the
+    CPU, and the loss falling."""
+    cpu = torch.device("cpu")
+    out = {}
+
+    def run(fn, **kw):
+        perf = PerfTracker()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trained, losses = fn(steps=TRAIN_STEPS, log_every=0, device=dev, perf=perf, **kw)
+        return trained, losses, time.perf_counter() - t0, perf
+
+    sp_cfg = SuperPointConfig()
+    _, losses, wall, perf = run(train_superpoint, seed=0)
+    batch = superpoint_batch(np.random.default_rng(0), 16, 120, 160)
+    with torch.no_grad():
+        first = float(superpoint_loss(random_params(0, sp_cfg), *(torch.as_tensor(x) for x in batch),
+                                      sp_cfg)[0])
+    out["superpoint"] = _train_row("train_superpoint", losses, first, wall, perf, TRAIN_STEPS)
+
+    _, losses, wall, perf = run(train_netvlad, seed=1)
+    nv0 = netvlad_init(torch.Generator().manual_seed(1), NetVLADConfig())
+    with torch.no_grad():
+        first = float(netvlad_loss(nv0, *(torch.as_tensor(x) for x in
+                                          netvlad_batch(np.random.default_rng(1), 16, 120, 160))))
+    out["netvlad"] = _train_row("train_netvlad", losses, first, wall, perf, TRAIN_STEPS)
+
+    _, losses, wall, perf = run(train_superglue, seed=2, sp_params=params)
+    sg_cfg = sg.SuperGlueConfig(num_layers=3, num_heads=4, sinkhorn_iters=20)
+    rng = np.random.default_rng(2)
+    bank = superglue_bank(SuperPoint(params, SuperPointConfig(max_keypoints=96, threshold=0.010,
+                                                              nms_radius=4), device=dev),
+                          rng, 256, (120, 160))
+    sel = rng.integers(0, 256, 8)
+    bank_cpu = tuple(type(b)(*(f.cpu() for f in b)) for b in bank[:2]) + (bank[2].cpu(),)
+    with torch.no_grad():
+        first = float(superglue_loss(sg.superglue_init(torch.Generator().manual_seed(2), sg_cfg),
+                                     bank_cpu, sel, (120, 160), sg_cfg))
+    out["superglue"] = _train_row("train_superglue", losses, first, wall, perf, TRAIN_STEPS)
+    return out
+
+
+def phase_tools(params, dev):
+    """(o) the tools: MSCKF, the ONNX runtime with SuperPoint and NetVLAD,
+    int8 quantization, calibration and training, each on the card."""
+    t0 = time.perf_counter()
+    msckf = tools_msckf(dev)
+    print("phase o.1 (MSCKF, default size, 40 keyframes, card against CPU): "
+          + json.dumps(msckf), flush=True)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        sp, nv, q, stem_launches = tools_onnx(params, dev, tmp)
+    print("phase o.2 (ONNX SuperPoint 480x640 against the native models): " + json.dumps(sp),
+          flush=True)
+    print("phase o.2 (ONNX NetVLAD 480x640 with PCA against the native module): "
+          + json.dumps(nv), flush=True)
+    print("phase o.3 (int8 SuperPoint graph): " + json.dumps(q), flush=True)
+    t2 = time.perf_counter()
+    calib = tools_calibration(dev)
+    print("phase o.4 (calibration, 30 views 640x480, vignette 480x640): " + json.dumps(calib),
+          flush=True)
+    t3 = time.perf_counter()
+    train = tools_training(params, dev)
+    print("phase o.5 (training at the default widths): " + json.dumps(train), flush=True)
+    t4 = time.perf_counter()
+    print("phase o seconds: " + json.dumps(dict(
+        msckf=t1 - t0, onnx_quant=t2 - t1, calibration=t3 - t2, training=t4 - t3)), flush=True)
+    return dict(stem_launches=stem_launches)
+
+
+def phase_multirobot(params, dev, scen):
     """(n) multi-robot estimation and distributed PGO: n.1 batched over 4
-    robots, n.2 the JAX package's feature-level system scenarios with their
-    pins, n.3 two robots at full width in distributed mode with DPGO and a
-    server."""
+    robots; ``scen``, the results of n.2 (``feature_scenarios``), the JAX
+    package's feature-level system scenarios with their pins; n.3 two
+    robots at full width in distributed mode with DPGO and a server."""
     batched = phase_multirobot_batched(dev)
-    scen = feature_scenarios()
     print("phase n.2 (feature-level system scenarios: server, DPGO, distributed): "
           + json.dumps(scen), flush=True)
     full = distributed_full_run(params, dev)
@@ -2504,9 +3091,17 @@ def main():
     mark("k")
     replay = phase_depth_replay(dev)
     mark("l")
-    swarm = phase_swarm(params, dev)
-    mark("m")
-    multi = phase_multirobot(params, dev)
+    # n.2 in the background beside m.2, m.3 and o (module docstring)
+    alone = superglue_alone(dev)
+    with ProcessPoolExecutor(len(FEATURE_SCENARIOS),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        scenarios = feature_scenarios(pool)
+        swarm = phase_swarm(params, dev, alone)
+        mark("m")
+        tools = phase_tools(params, dev)
+        mark("o")
+        scen = scenarios()
+    multi = phase_multirobot(params, dev, scen)
     mark("n")
 
     big = kernel_rows["2x480x640"]
@@ -2524,7 +3119,7 @@ def main():
                            if not k.startswith("calibration"))
                      + sum(r["stem_launches"] for r in options["calibration_from_images"].values())
                      + swarm["swarm_480x640"]["stem_launches"]
-                     + multi["full"]["stem_launches"]),
+                     + multi["full"]["stem_launches"] + tools["stem_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],

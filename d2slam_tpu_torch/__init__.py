@@ -32,4 +32,10 @@ wire codec, the UDP multicast transport, an in-memory bus, LoopNet),
 SuperGlue as the tracker's and the loop detector's matcher, inter-robot
 loops, map alignment and merge (``vins/swarm.py``,
 ``D2Estimator.move_all_poses``) and one pose graph over both robots.
+
+The tools: the MSCKF filter (``vins/msckf.py``), the ONNX reader and its
+lowering to torch ops (``tools/onnx_io.py``, ``tools/onnx_torch.py``)
+behind the SuperPoint, NetVLAD and trained-HitNet loaders, int8 weight
+quantization, descriptor PCA, camera calibration (``tools/``) and the
+frontend trainers (``frontend/train_frontend.py``).
 """

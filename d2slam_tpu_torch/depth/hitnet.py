@@ -13,20 +13,22 @@ Convolutions are ``F.conv2d`` (they are stock convolutions in the JAX
 package too, outside any kernel). Public functions keep the JAX
 package's NHWC layout; parameters are held as OIHW tensors.
 
-Not ported: the trained-HitNet route. The JAX package runs the
-reference's ONNX export through its ONNX bridge; neither the export nor
-a bridge exists in the port (``load_trained_hitnet`` raises).
+The trained HitNet (the reference's ONNX export) runs through the
+port's ONNX lowering, ``tools/onnx_torch.py`` (``load_trained_hitnet``).
+The export is not in this repository: the caller names its path.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from d2slam_tpu_torch.tools.onnx_torch import load_onnx_module
 from d2slam_tpu_torch.utils.device import cudnn_fp32, resolve_device
 
 
@@ -145,13 +147,45 @@ def hitnet_apply(params: Dict, left, right, cfg: HitNetConfig = HitNetConfig()):
     return d[:, 0]
 
 
-def load_trained_hitnet(path: str = ""):
-    """Not ported: the trained HitNet ships as an ONNX export
-    (models/hitnet_series/hitnet_1x240x320_model_float32.onnx of the
-    reference), which this repository does not contain, and the port has
-    no ONNX lowering yet."""
-    raise NotImplementedError(
-        "the trained-HitNet ONNX route is not ported: it needs the "
-        "reference's hitnet_1x240x320_model_float32.onnx export and an "
-        "ONNX->PyTorch lowering; use hitnet_init / load_params with "
-        "hitnet_apply")
+TRAINED_HITNET_EXPORT = "hitnet_1x240x320_model_float32.onnx"
+
+
+class TrainedHitNet:
+    """A trained HitNet ONNX export lowered to torch ops on one device:
+    ``net(left, right)`` maps a rectified [H, W] pair in [0, 1] (the
+    reference feeds gray/255: quadcam_depth_est_trt.cpp:319-329) to
+    disparity [H, W]. The input resolution is the export's
+    (``input_hw``; 240x320 for the reference models)."""
+
+    def __init__(self, module):
+        _, c, h, w = module.input_shapes[0]
+        if c != 2:
+            raise ValueError(f"expected 2-channel (left,right) input, got {c}")
+        self.module = module
+        self.input_hw = (h, w)
+
+    @property
+    def params(self):
+        return self.module.params
+
+    @property
+    def device(self) -> torch.device:
+        return self.module.device
+
+    def __call__(self, left, right):
+        x = torch.stack([left, right])[None].to(self.device, self.module.runner.dtype)
+        y = self.module(x)
+        return y.reshape(y.shape[-3:-1] if y.shape[-1] == 1 else y.shape[-2:])
+
+
+def load_trained_hitnet(path: str = "", dtype=torch.float32, device=None) -> TrainedHitNet:
+    """Load a trained HitNet ONNX export (the reference's
+    models/hitnet_series/hitnet_1x240x320_model_float32.onnx, or its
+    float16_quant variant) through the ONNX lowering. The repository
+    does not carry the export: without a path that exists this raises
+    ``FileNotFoundError``."""
+    if not path or not os.path.exists(path):
+        raise FileNotFoundError(
+            f"trained HitNet export not found: {path or TRAINED_HITNET_EXPORT!r} "
+            f"(pass the path of the reference's {TRAINED_HITNET_EXPORT})")
+    return TrainedHitNet(load_onnx_module(path, dtype=dtype, device=device))

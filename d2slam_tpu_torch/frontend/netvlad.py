@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from d2slam_tpu_torch.utils.device import cudnn_fp32, resolve_device
+from d2slam_tpu_torch.utils.device import cudnn_fp32, resolve_device, to_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,9 +74,9 @@ def load_params(path: str) -> Dict:
 def netvlad_cfg_from_params(params: Dict) -> NetVLADConfig:
     """The config implied by a weight tree (cluster count and feature dim
     from ``vlad_centers``, pca_dim from the stored projection)."""
-    K, D = np.asarray(params["vlad_centers"]).shape
+    K, D = params["vlad_centers"].shape
     pca = params.get("pca")
-    pca_dim = int(np.asarray(pca["proj"]).shape[-1]) if pca is not None else 0
+    pca_dim = int(pca["proj"].shape[-1]) if pca is not None else 0
     return NetVLADConfig(num_clusters=int(K), feat_dim=int(D), output_dim=int(K * D),
                          pca_dim=pca_dim)
 
@@ -140,7 +140,7 @@ class NetVLAD(nn.Module):
         dev = resolve_device(device)
 
         def t(x):
-            return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+            return to_f32(x, dev)
 
         def conv_w(p):   # HWIO -> [Cout, Cin/groups, kh, kw]
             return t(p["w"]).permute(3, 2, 0, 1).contiguous()
@@ -177,7 +177,7 @@ class NetVLAD(nn.Module):
                 for w, b, stride, groups in convs:
                     k = w.shape[-1]
                     x = F.conv2d(_same_pad(x, k, stride), w, b, stride=stride, groups=groups)
-                    x = torch.clamp(x, 0.0, 6.0)   # relu6
+                    x = F.relu6(x)   # gradient 0 at 0 and 6, as jax.nn.relu6
             logits = F.conv2d(x, self.assign_w, self.assign_b)
         B, D = x.shape[:2]
         feats = x.flatten(2).transpose(1, 2)                            # [B, N, D]
@@ -199,12 +199,49 @@ class NetVLAD(nn.Module):
         return v
 
 
-def netvlad_from_onnx(path: str, pca=None):
-    """The ONNX route of the JAX package needs its ONNX lowerer, which is
-    not ported yet."""
-    raise NotImplementedError(
-        "netvlad_from_onnx needs the ONNX-to-torch lowerer (tools/onnx_jax.py), "
-        "which is not ported yet")
+class OnnxNetVLAD(nn.Module):
+    """A MobileNetVLAD ONNX export lowered to torch ops, with
+    :class:`NetVLAD`'s contract: img [B, H, W] in [0, 1] -> [B, D] unit
+    vectors, optionally PCA-projected and renormalized."""
+
+    def __init__(self, module, pca=None):
+        super().__init__()
+        self.module = module
+        self.rank = len(module.input_shapes[0])
+        dev = module.device
+        self.pca = None if pca is None else tuple(to_f32(a, dev) for a in pca)
+        self.calls = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.module.device
+
+    def forward(self, img):
+        self.calls += 1
+        vs = []
+        for x in img:   # the export takes one image
+            v = self.module(x[None, ..., None] if self.rank == 4 else x[None])
+            vs.append((v[0] if isinstance(v, tuple) else v).reshape(-1))
+        v = torch.stack(vs)
+        v = v / torch.clamp_min(torch.linalg.norm(v, dim=-1, keepdim=True), 1e-12)
+        if self.pca is not None:
+            mean, proj = self.pca
+            v = (v - mean) @ proj
+            v = v / torch.clamp_min(torch.linalg.norm(v, dim=-1, keepdim=True), 1e-12)
+        return v
+
+
+def netvlad_from_onnx(path: str, pca=None, device=None) -> OnnxNetVLAD:
+    """Load a MobileNetVLAD ONNX export (JAX ``netvlad_from_onnx``).
+
+    The reference feeds NHWC [1, H, W, 1] into tensor "image:0" and
+    reads "descriptor:0" [1, 4096]
+    (d2frontend/include/d2frontend/CNN/mobilenetvlad_onnx.h:20-32),
+    optionally projecting to 1024-d with PCA + renormalization
+    (mobilenetvlad_onnx.h:49-74): pass pca=(mean [D], proj [D, d])."""
+    from d2slam_tpu_torch.tools.onnx_torch import load_onnx_module
+
+    return OnnxNetVLAD(load_onnx_module(path, device=device), pca)
 
 
 def quantize_descriptor_int8(v):

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from d2slam_tpu_torch.utils.device import resolve_device
+from d2slam_tpu_torch.utils.device import resolve_device, to_f32
 
 _MASKED = -1e9
 
@@ -72,7 +72,8 @@ def superglue_init(generator: torch.Generator,
 
 
 def superglue_params_from_numpy(raw: Mapping) -> Dict:
-    """The JAX layout (nested dict of float32 numpy) from any of the
+    """The JAX layout (nested dict of float32 numpy; tensor leaves are
+    kept as they are) from any of the
     layouts the JAX package writes: the nested dict of
     ``train_frontend.load_weights`` (npz keys such as ``cross0/k/w``), an
     ``np.load`` of such an npz, or the flat ``name_w`` layout of
@@ -83,6 +84,8 @@ def superglue_params_from_numpy(raw: Mapping) -> Dict:
         if isinstance(node, Mapping) or hasattr(node, "files"):
             for k in node.keys():
                 walk(f"{prefix}/{k}" if prefix else str(k), node[k])
+        elif torch.is_tensor(node):
+            leaves[prefix] = node
         else:
             leaves[prefix] = np.asarray(node, np.float32)
 
@@ -132,9 +135,9 @@ class SuperGlue(nn.Module):
             for part in name.split("/"):
                 node = node[part]
             tag = name.replace("/", "_")
-            self.register_buffer(tag + "_w", torch.tensor(node["w"], device=self.device))
-            self.register_buffer(tag + "_b", torch.tensor(node["b"], device=self.device))
-        self.register_buffer("dustbin", torch.tensor(p["dustbin"], device=self.device))
+            self.register_buffer(tag + "_w", to_f32(node["w"], self.device))
+            self.register_buffer(tag + "_b", to_f32(node["b"], self.device))
+        self.register_buffer("dustbin", to_f32(p["dustbin"], self.device))
         self.calls = 0   # logP evaluations (matches and loop candidates)
 
     def _dense(self, x, name):

@@ -20,7 +20,9 @@ Compute dtypes:
 Weights: ``load_params`` reads the JAX package's ``.npz`` (HWIO convs);
 ``SuperPoint`` turns them into OIHW tensors plus the stem kernel's
 packed bf16 layout, so both packages compute the same network from
-the same file. Public functions keep the JAX package's NHWC layout.
+the same file. Built from trainable float32 tensors, the float32 model
+passes gradients back to them (the trainer's route); the stem kernel
+has no backward. Public functions keep the JAX package's NHWC layout.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from d2slam_tpu_torch.ops.superpoint_stem import (
     pack_stem_weights,
     superpoint_stem,
 )
-from d2slam_tpu_torch.utils.device import cudnn_fp32, resolve_device
+from d2slam_tpu_torch.utils.device import cudnn_fp32, resolve_device, to_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,19 +111,19 @@ class SuperPoint(nn.Module):
         self.bf16 = cfg.compute_dtype == "bfloat16"
         wdtype = torch.bfloat16 if self.bf16 else torch.float32
         for name in _ENCODER + _HEADS:
-            w = torch.as_tensor(np.asarray(params[name]["w"], np.float32))
-            b = torch.as_tensor(np.asarray(params[name]["b"], np.float32))
-            self.register_buffer(f"{name}_w", w.permute(3, 2, 0, 1).to(dev, wdtype).contiguous())
-            self.register_buffer(f"{name}_b", b.to(dev, wdtype))
+            w = to_f32(params[name]["w"], dev)
+            b = to_f32(params[name]["b"], dev)
+            self.register_buffer(f"{name}_w", w.permute(3, 2, 0, 1).to(wdtype).contiguous())
+            self.register_buffer(f"{name}_b", b.to(wdtype))
         self.stem = None
         if self.bf16:
+            # the stem's packed weights are constants: the kernel has no backward
             self.stem = pack_stem_weights(
-                params["conv1a"]["w"], params["conv1a"]["b"],
-                params["conv1b"]["w"], params["conv1b"]["b"], device=dev)
+                *(params[n][k].detach().cpu() if torch.is_tensor(params[n][k]) else params[n][k]
+                  for n in ("conv1a", "conv1b") for k in ("w", "b")), device=dev)
         self.pca = None
         if "pca" in params:
-            self.pca = (torch.as_tensor(np.asarray(params["pca"]["proj"], np.float32), device=dev),
-                        torch.as_tensor(np.asarray(params["pca"]["mean"], np.float32), device=dev))
+            self.pca = (to_f32(params["pca"]["proj"], dev), to_f32(params["pca"]["mean"], dev))
 
     @property
     def device(self) -> torch.device:
@@ -142,6 +144,10 @@ class SuperPoint(nn.Module):
         logits, desc [B, D, Hc, Wc] f32 L2-normalized), NCHW."""
         with cudnn_fp32():
             if self.bf16:
+                if torch.is_grad_enabled() and (self.conv1a_w.requires_grad
+                                                or self.conv1b_w.requires_grad):
+                    raise RuntimeError("the bf16 stem has no backward: train the float32 "
+                                       "trunk (compute_dtype='float32')")
                 x = superpoint_stem(img, self.stem).permute(0, 3, 1, 2)
             else:
                 x = F.relu(self._conv(img[:, None], "conv1a"))
@@ -158,6 +164,56 @@ class SuperPoint(nn.Module):
         return semi, desc
 
 
+def convert_torch_state_dict(state: Dict) -> Dict:
+    """Map the public magicleap SuperPoint checkpoint (OIHW torch convs,
+    ``<layer>.weight`` / ``<layer>.bias``) to the JAX parameter layout
+    (HWIO, numpy) that :class:`SuperPoint` and ``load_params`` use."""
+    out = {}
+    for name in _ENCODER + _HEADS:
+        w = np.asarray(state[f"{name}.weight"])  # [O, I, H, W]
+        out[name] = {"w": w.transpose(2, 3, 1, 0), "b": np.asarray(state[f"{name}.bias"])}
+    return out
+
+
+class OnnxSuperPoint(nn.Module):
+    """A SuperPoint ONNX export lowered to torch ops, with
+    :class:`SuperPoint`'s contract for ``superpoint_extract``:
+    ``forward(img [B, H, W])`` returns (semi, desc [B, D, Hc, Wc]
+    L2-normalized). ``semi`` is the export's own: [B, 65, Hc, Wc] cell
+    logits, or a [B, H, W] heatmap decoded in-graph (both styles the
+    reference consumes, d2frontend/src/CNN/superpoint_onnx.cpp:59 —
+    outputs "semi", "desc")."""
+
+    def __init__(self, module, cfg: SuperPointConfig = SuperPointConfig()):
+        super().__init__()
+        self.module = module
+        self.cfg = cfg
+        self.pca = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.module.device
+
+    def forward(self, img):
+        semis, descs = [], []
+        for x in img:   # the export takes one [1, 1, H, W] image
+            semi, desc = self.module(x[None, None])
+            semis.append(semi.reshape(semi.shape[-2:])[None] if semi.dim() != 4 else semi)
+            descs.append(desc)
+        desc = torch.cat(descs)
+        desc = desc / torch.clamp_min(torch.linalg.norm(desc, dim=1, keepdim=True), 1e-12)
+        return torch.cat(semis), desc
+
+
+def superpoint_from_onnx(path: str, cfg: SuperPointConfig = SuperPointConfig(),
+                         dtype=torch.float32, device=None) -> OnnxSuperPoint:
+    """Load a SuperPoint ONNX export (JAX ``superpoint_from_onnx``); the
+    model plugs into ``superpoint_extract`` like :class:`SuperPoint`."""
+    from d2slam_tpu_torch.tools.onnx_torch import load_onnx_module
+
+    return OnnxSuperPoint(load_onnx_module(path, dtype=dtype, device=device), cfg)
+
+
 def superpoint_raw(model: SuperPoint, img):
     """img: [B, H, W, 1] in [0, 1]. Returns the pre-softmax head outputs
     (semi [B, Hc, Wc, 65], desc [B, Hc, Wc, D]) in NHWC."""
@@ -167,8 +223,12 @@ def superpoint_raw(model: SuperPoint, img):
 
 def superpoint_apply(model: SuperPoint, img):
     """img: [B, H, W, 1] in [0, 1]. Returns (scores [B, H, W],
-    desc_coarse [B, Hc, Wc, D]), f32."""
+    desc_coarse [B, Hc, Wc, D]), f32. A model whose ``semi`` is already a
+    [B, H, W] heatmap (an ONNX export that decodes in-graph) passes it
+    through."""
     semi, desc = model(img[..., 0])
+    if semi.dim() == 3:
+        return semi, desc.permute(0, 2, 3, 1)
     dense = torch.softmax(semi, dim=1)[:, :64]  # drop dustbin
     # depth-to-space: channel 8*i+j of cell (h, w) -> pixel (8h+i, 8w+j)
     scores = F.pixel_shuffle(dense, 8)[:, 0]

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -43,6 +44,16 @@ def load_cuda_linalg(device: torch.device) -> None:
     that robot threads use call this when they are built."""
     if device.type == "cuda":
         torch.linalg.cholesky_ex(torch.ones((1, 1), device=device))
+
+
+def to_f32(x, device: torch.device) -> torch.Tensor:
+    """A weight as a float32 tensor on ``device``: numpy (or any array)
+    is copied; a tensor keeps its autograd graph, so models built from
+    trainable tensors (``frontend/train_frontend.py``) pass gradients
+    back to them."""
+    if torch.is_tensor(x):
+        return x.to(device, torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -203,5 +203,9 @@ def test_hitnet_init_load_and_missing_onnx(tmp_path):
     x = torch.rand(1, 16, 24, 1, generator=torch.Generator().manual_seed(0))
     d = thit.hitnet_apply(a, x, x, cfg)
     assert d.shape == (1, 16, 24) and bool(torch.isfinite(d).all())
-    with pytest.raises(NotImplementedError):
+    # the trained route reads the reference's ONNX export, which is not in
+    # the repository (tests/test_torch_onnx.py runs it on a built graph)
+    with pytest.raises(FileNotFoundError, match="hitnet_1x240x320_model_float32.onnx"):
         thit.load_trained_hitnet()
+    with pytest.raises(FileNotFoundError, match="absent.onnx"):
+        thit.load_trained_hitnet(str(tmp_path / "absent.onnx"), device="cpu")

@@ -89,9 +89,20 @@ def test_int8_quantization_matches_jax():
     assert np.abs(dp - v).max() < 0.01
 
 
-def test_netvlad_needs_a_card_or_cpu(monkeypatch):
+def test_netvlad_needs_a_card_or_cpu(monkeypatch, tmp_path):
+    """Both routes, the native module and the ONNX export
+    (``netvlad_from_onnx``, tests/test_torch_onnx.py holds it against the
+    JAX loader), default to the card."""
+    from d2slam_tpu_torch.tools.onnx_io import OnnxGraph, OnnxNode, save_onnx
+
+    path = str(tmp_path / "nv.onnx")
+    save_onnx(OnnxGraph(nodes=[OnnxNode("Flatten", ["image:0"], ["descriptor:0"])],
+                        initializers={"w": np.ones(4, np.float32)},
+                        inputs=[("image:0", (1, 4, 4, 1))], outputs=["descriptor:0"]), path)
+    v = pnv.netvlad_from_onnx(path, device="cpu")(torch.rand(2, 4, 4))
+    assert v.shape == (2, 16)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pnv.NetVLAD(pnv.load_params(WEIGHTS))
-    with pytest.raises(NotImplementedError):
-        pnv.netvlad_from_onnx("model.onnx")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pnv.netvlad_from_onnx(path)

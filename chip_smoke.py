@@ -143,15 +143,35 @@ the hand-written stem kernel is on the path:
       their default widths for 24 steps each: the first step's loss
       against the CPU's and the loss falling, ms per step with the host
       batch apart.
+  (p) the host tools and the command-line entry points: (p.1) a ROS1 bag
+      of 12 composite frames (phase d's four 480x640 fisheye views side by
+      side) and 200 Hz IMU through ``tools.bag_tools`` ``split``, ``sync``
+      (against a copy shifted by 150.5 s), ``filter`` and ``info``, and
+      ``generate_stereo_bag`` on the card against the same call on the
+      CPU, with the rig's extrinsics and without (the same pairs, images
+      within 1 grey level, ms per pair); (p.2) one LoopNet keyframe
+      broadcast with two views over UDP multicast on the card's host,
+      counted by ``tools.spy.SpyStats`` (packets and bytes per channel
+      equal to what was sent); (p.3) every CLI of
+      ``d2slam_tpu_torch.examples`` through its ``main(argv)`` on the card
+      at its default arguments (``train_frontend`` cut to 24 / 24 / 8
+      steps), each held to its JAX test's pins or its own printed gates,
+      with its wall seconds and summary; ``evaluate_trajectories`` reads
+      the CSV ``run_synthetic_vio`` wrote; the weights ``train_frontend``
+      wrote go through 4 bf16 extractions at 480x640 (stem launches); the
+      two multi-process CLIs run in the background from the start of p.1.
 
-The phases run in the order a, b-c, d, e, f, j, g, h, i, k, l, m, o, n;
-n.2's three processes run in the background from the end of m.1 until
-o is done, so the times m.2, m.3 and o print carry their load on the
-host and the card (m.1 and n.1 are timed alone).
+The phases run in the order a, b-c, d, e, j (with f beside it in a
+process of its own), g, h, i, l, m, o, n, p; n.2's three processes and
+k's one run in the background from the end of m.1 until o is done. Each
+of these is launch-bound on one host core and leaves the card idle most
+of the time, so the side-by-side runs shorten the script by about the
+length of f and k; the times f, j, k, m.2, m.3 and o print carry the
+others' load on the host and the card (a, m.1 and n.1 are timed alone).
 
 The native pipeline library and LK are built with the kernels in (a).
-The launch counts of (c), (d), (e), (f), (h), (j), (k), (l), (m), (n) and
-(o) go into the ``kernels`` line: each count is set to 0 just before its
+The launch counts of (c), (d), (e), (f), (h), (j), (k), (l), (m), (n), (o)
+and (p) go into the ``kernels`` line: each count is set to 0 just before its
 path runs and read just after.
 
 Every phase prints one line; any failure exits non-zero. The last three
@@ -181,7 +201,9 @@ if not torch.cuda.is_available():
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-from d2slam_tpu_torch.comm.transport import LocalBus  # noqa: E402
+from d2slam_tpu_torch.comm import codec  # noqa: E402
+from d2slam_tpu_torch.comm.loopnet import LoopNet  # noqa: E402
+from d2slam_tpu_torch.comm.transport import LocalBus, UDPMulticastTransport  # noqa: E402
 from d2slam_tpu_torch.config import D2Config  # noqa: E402
 from d2slam_tpu_torch.datasets import EuRoCDataset, RosbagReader, RosbagWriter  # noqa: E402
 from d2slam_tpu_torch.frontend import lk  # noqa: E402
@@ -255,7 +277,17 @@ from d2slam_tpu_torch.runtime.depth_replay import (  # noqa: E402
 )
 from d2slam_tpu_torch.runtime.system import D2SLAMSystem, SystemConfig  # noqa: E402
 from d2slam_tpu_torch.ops import superpoint_stem as stem  # noqa: E402
-from d2slam_tpu_torch.tools import calibration  # noqa: E402
+from d2slam_tpu_torch.examples import (  # noqa: E402
+    evaluate_trajectories,
+    run_quadcam_depth,
+    run_server_mode,
+    run_swarm_pgo,
+    run_swarm_processes,
+    run_synthetic_vio,
+    simulate_dpgo,
+    train_frontend,
+)
+from d2slam_tpu_torch.tools import bag_tools, calibration, spy  # noqa: E402
 from d2slam_tpu_torch.tools.calibration import (  # noqa: E402
     calibrate_kb,
     calibrate_pinhole,
@@ -285,7 +317,11 @@ from d2slam_tpu_torch.utils.sim import (  # noqa: E402
 )
 from d2slam_tpu_torch.utils.checkpoint import load_estimator, save_estimator  # noqa: E402
 from d2slam_tpu_torch.utils.euroc_writer import write_euroc_dataset  # noqa: E402
-from d2slam_tpu_torch.utils.evaluation import ate_rmse  # noqa: E402
+from d2slam_tpu_torch.utils.evaluation import (  # noqa: E402
+    ate_rmse,
+    read_trajectory_csv,
+    write_trajectory_csv,
+)
 from d2slam_tpu_torch.utils.synthetic import (  # noqa: E402
     default_col_free,
     make_circle_scene,
@@ -425,6 +461,18 @@ ONNX_REL, ONNX_KPT_AGREE, NETVLAD_COS = 1e-4, 0.99, 1 - 1e-4
 QUANT_COMPRESSION, QUANT_REL_ERR = 3.0, 0.05
 CALIB_VIEWS, CALIB_CARD_CPU = 30, 1e-6
 TRAIN_STEPS, TRAIN_FIRST_REL = 24, 1e-4
+# phase p: the composite quadcam bag (frames at 10 Hz, IMU at 200 Hz,
+# phase d's rig side by side), the shift of its second copy (s), the
+# virtual-stereo images card against CPU (grey levels), the UDP port of
+# the spy; the CLIs' pins: tests/test_estimator.py's noise-free run
+# (ATE, solves, marginalizations over 20 frames), tests/test_quadcam.py's
+# wall, tests/test_dpgo_transport.py::test_multi_process_swarm's
+# disagreement; P_STEM_FRAMES bf16 extractions on the trained weights
+P_BAG_FRAMES, P_BAG_HZ, P_IMU_HZ, P_SHIFT, P_GREY_TOL = 12, 10.0, 200, 150.5, 1
+P_SPY_PORT = 17801
+P_VIO_ATE, P_VIO_SOLVES, P_VIO_MARGINS = 0.02, 15, 10
+P_DPGO_DISAGREEMENT = 0.15
+P_STEM_FRAMES = 4
 
 
 def fail(msg):
@@ -2462,14 +2510,30 @@ def distributed_full_run(params, dev, H=480, W=640, fx=440.0, n_frames=N_FULL_FR
     return res
 
 
+def _child_setup():
+    """A spawned child's card settings (the parent's of main())."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _system_in_child():
+    """(f) in a process of its own, beside (j): both are launch-bound on
+    one host core and leave the card idle most of the time."""
+    return run_system(load_params(WEIGHTS), _child_setup(), 480, 640, 440.0, SYSTEM_FRAMES)
+
+
+def _options_in_child():
+    """(k) in a process of its own, beside n.2, m.2, m.3 and o."""
+    return phase_options(load_params(WEIGHTS), _child_setup())
+
+
 def _scenario_in_child(name):
     """One n.2 scenario in a process of its own (spawned: the card needs
     a fresh CUDA context)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     fn = {"server": feature_server, "dpgo": feature_dpgo,
           "distributed": feature_distributed}[name]
-    return fn(torch.device("cuda"))
+    return fn(_child_setup())
 
 
 FEATURE_SCENARIOS = ("server", "dpgo", "distributed")
@@ -3005,6 +3069,287 @@ def phase_multirobot(params, dev, scen):
     return dict(batched=batched, scenarios=scen, full=full)
 
 
+class _ThreadStdout:
+    """``sys.stdout`` for phase p: a thread that set ``local.buf`` writes
+    there, every other thread to the real stdout (``redirect_stdout``
+    swaps one stream for the whole process)."""
+
+    def __init__(self, real):
+        self.real, self.local = real, threading.local()
+
+    def _target(self):
+        buf = getattr(self.local, "buf", None)
+        return self.real if buf is None else buf
+
+    def write(self, text):
+        return self._target().write(text)
+
+    def flush(self):
+        self._target().flush()
+
+
+def _cli(mod, argv):
+    """``mod.main(argv)`` with its output kept (``sys.stdout`` must be a
+    ``_ThreadStdout``): (exit code, summary, wall seconds, output)."""
+    import io
+
+    buf = sys.stdout.local.buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        rc = mod.main(argv)
+    finally:
+        sys.stdout.local.buf = None
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    return rc, json.loads(lines[-1]) if lines else None, wall, out
+
+
+def tools_bags(dev, tmp):
+    """p.1: the bag tools on a composite quadcam bag of phase d's rig."""
+    HF, WF = 480, 640
+    ext = fisheye_ring_extrinsics(0.3)
+    fish = [KBParams.make(190.0, 190.0, WF / 2, HF / 2, k2=0.005) for _ in range(4)]
+    # three wall textures, cycled over the frames
+    views = [np.stack([(render_cylinder_wall(fish[i], ext[i], (HF, WF), WALL_RADIUS, seed=k)
+                        * 255).astype(np.uint8) for i in range(4)]) for k in range(3)]
+    comps = [np.concatenate(list(views[k % 3]), axis=1) for k in range(P_BAG_FRAMES)]
+    src = os.path.join(tmp, "quad.bag")
+    t0, n_imu = 100.0, int(P_BAG_FRAMES / P_BAG_HZ * P_IMU_HZ)
+    with RosbagWriter(src) as w:
+        for i in range(n_imu):
+            w.write_imu("/imu", t0 + i / P_IMU_HZ, acc=[0, 0, 9.8], gyr=[0, 0, 0.1])
+        for k, c in enumerate(comps):
+            w.write_image("/oak_ffc_4p/assemble_image", t0 + k / P_BAG_HZ, c)
+    res = dict(composite_hw=list(comps[0].shape), frames=P_BAG_FRAMES, imu=n_imu)
+
+    ts = time.perf_counter()
+    split = bag_tools.split_quadcam_bag(src, keep_topics=["/imu"])
+    r = RosbagReader(split)
+    for i in range(4):
+        got = [m["image"] for _, _, m in r.read_messages([f"/cam_{i}/image"])]
+        if len(got) != P_BAG_FRAMES or any(
+                not np.array_equal(g, c[:, i * WF:(i + 1) * WF]) for g, c in zip(got, comps)):
+            fail(f"split: view {i} differs from the composite's quarter")
+    if len(list(r.read_messages(["/imu"], raw=True))) != n_imu:
+        fail("split: IMU not passed through")
+    res["split_s"] = time.perf_counter() - ts
+
+    ts = time.perf_counter()
+    second = os.path.join(tmp, "second.bag")
+    bag_tools.shift_bag(src, second, P_SHIFT)
+    synced = bag_tools.sync_bags([src, second], out_dir=tmp, t_start=1.0)
+    shifts = [dt for _, dt in synced]
+    if (abs(shifts[0] - (1.0 - t0)) > 1e-9 or abs(shifts[1] - (1.0 - t0 - P_SHIFT)) > 1e-9
+            or any(abs(bag_tools.find_time0(o) - 1.0) > 1e-6 for o, _ in synced)):
+        fail(f"sync: shifts {shifts}")
+    res.update(sync_shifts_s=shifts, sync_s=time.perf_counter() - ts)
+
+    ts = time.perf_counter()
+    cut = os.path.join(tmp, "cut.bag")
+    n_cut = bag_tools.filter_bag(src, cut, topics=["/imu"], t_start=t0 + 0.1, t_end=t0 + 0.6)
+    n_step = bag_tools.filter_bag(src, os.path.join(tmp, "step.bag"),
+                                  topics=["/oak_ffc_4p/assemble_image"], step=2)
+    info = bag_tools.bag_info(src)
+    if (n_cut != int(0.5 * P_IMU_HZ) + 1 or n_step != P_BAG_FRAMES // 2
+            or info["/imu"]["count"] != n_imu
+            or info["/oak_ffc_4p/assemble_image"]["count"] != P_BAG_FRAMES
+            or bag_tools.bag_info(cut)["/imu"]["count"] != n_cut):
+        fail(f"filter / info: {n_cut}, {n_step}, {info}")
+    res.update(filtered_imu=n_cut, filtered_images=n_step, filter_info_s=time.perf_counter() - ts)
+
+    calib = dict(cams=[dict(fx=190.0, fy=190.0, cx=WF / 2, cy=HF / 2, k2=0.005)] * 4,
+                 baseline=0.3, out_hw=[240, 320])
+    for name, c in (("square_rig", calib), ("extrinsics", dict(calib, extrinsics=ext.tolist()))):
+        out = {}
+        for where in ("cpu", "cuda"):
+            path = os.path.join(tmp, f"stereo_{name}_{where}.bag")
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            n = bag_tools.generate_stereo_bag(src, path, c, device=where)
+            out[where] = (n, path, (time.perf_counter() - ts) * 1e3 / max(n, 1))
+        (n_cpu, p_cpu, ms_cpu), (n_card, p_card, ms_card) = out["cpu"], out["cuda"]
+        worst = 0
+        for topic in RosbagReader(p_cpu).topics:
+            a = [m["image"] for _, _, m in RosbagReader(p_card).read_messages([topic])]
+            b = [m["image"] for _, _, m in RosbagReader(p_cpu).read_messages([topic])]
+            if len(a) != len(b):
+                fail(f"stereo-gen ({name}) {topic}: {len(a)} images on the card, {len(b)} on "
+                     "the CPU")
+            worst = max([worst] + [int(np.abs(x.astype(int) - y.astype(int)).max())
+                                   for x, y in zip(a, b)])
+        if n_card != n_cpu or n_card != 4 * P_BAG_FRAMES or worst > P_GREY_TOL:
+            fail(f"stereo-gen ({name}): {n_card} / {n_cpu} pairs, worst {worst} grey levels")
+        res[f"stereo_{name}"] = dict(pairs=n_card, max_grey_diff=worst, ms_per_pair=ms_card,
+                                     ms_per_pair_cpu=ms_cpu)
+    return res
+
+
+def tools_spy():
+    """p.2: one LoopNet keyframe broadcast (the keyframe and its two
+    views) over UDP multicast on this host, counted by ``SpyStats``."""
+    sender = UDPMulticastTransport(1, port=P_SPY_PORT)
+    listener = UDPMulticastTransport(9999, port=P_SPY_PORT)
+    try:
+        sent = {}
+        send = sender.send
+
+        def send_and_count(ch, data):
+            c = sent.setdefault(ch, [0, 0])
+            c[0] += 1
+            c[1] += len(data)
+            send(ch, data)
+
+        sender.send = send_and_count
+        net = LoopNet(sender, 1, send_img=True)
+        rng = np.random.default_rng(0)
+        n = 200
+        desc = rng.normal(0, 1, (n, 256)).astype(np.float32)
+        rays = rng.normal(0, 1, (n, 3)).astype(np.float32)
+        pkt = codec.RemoteKeyframePacket(
+            drone_id=1, frame_id=42, stamp=5.25, is_keyframe=True,
+            pose=np.array([1, 2, 3, 0, 0, 0, 1], np.float32),
+            gdesc=rng.normal(0, 1, 1025).astype(np.float32), lm_ids=np.arange(n),
+            lm_cam=np.zeros(n, np.uint8), lm_rays=rays / np.linalg.norm(rays, axis=1)[:, None],
+            lm_vels=np.zeros((n, 3), np.float32),
+            lm_desc=desc / np.linalg.norm(desc, axis=1)[:, None])
+        views = [(render_cylinder_wall(KBParams.make(190.0, 190.0, 320.0, 240.0, k2=0.005),
+                                       fisheye_ring_extrinsics(0.3)[v], (480, 640),
+                                       WALL_RADIUS) * 255).astype(np.uint8) for v in range(2)]
+        stats = spy.SpyStats()
+        th = threading.Thread(target=lambda: (time.sleep(0.2),
+                                              net.broadcast_keyframe(pkt, images=views)))
+        th.start()
+        seen = stats.pump(listener, seconds=1.5)
+        th.join(timeout=10)
+    finally:
+        sender.close()
+        listener.close()
+    got = {c: [v.packets, v.bytes] for c, v in stats.by_channel.items()}
+    if got != sent or seen != sum(p for p, _ in sent.values()) or stats.keyframes != [(1, 42, n)]:
+        fail(f"spy over UDP multicast: counted {got}, sent {sent}, keyframes {stats.keyframes}")
+    return dict(sent={spy.CHANNEL_NAMES[c]: v for c, v in sent.items()},
+                counted={spy.CHANNEL_NAMES[c]: v for c, v in got.items()},
+                loopnet_sent_bytes=net.sent_bytes, keyframes=stats.keyframes)
+
+
+def _run_cli(res, name, mod, argv, check):
+    """One CLI through ``_cli``, its result into ``res[name]``, printed,
+    and held to ``check(summary)``."""
+    rc, summary, wall, out = _cli(mod, argv)
+    res[name] = dict(rc=rc, wall_s=wall, summary=summary)
+    print(f"phase p.3 {name} ({wall:.1f} s): " + json.dumps(summary), flush=True)
+    if rc != 0 or summary is None or not check(summary):
+        fail(f"CLI {name}: exit code {rc}, summary {summary}; output:\n{out[-3000:]}")
+    return summary
+
+
+def start_process_clis(pool, res):
+    """p.3's two multi-process CLIs (one spawned process per robot, and a
+    server), started on ``pool`` to run beside p.1-p.3's other work."""
+    return [
+        pool.submit(_run_cli, res, "run_swarm_processes", run_swarm_processes, [],
+                    lambda s: (s["devices"] == ["cuda"]
+                               and s["max_disagreement_m"] < P_DPGO_DISAGREEMENT
+                               and s["ate_optimized_m"] < s["ate_odometry_m"])),
+        pool.submit(_run_cli, res, "run_server_mode", run_server_mode, [],
+                    lambda s: (s["ok"] and s["server_drones"] == ["0", "1"]
+                               and s["devices"] == ["cuda"]))]
+
+
+def tools_clis(dev, tmp, res):
+    """p.3: the in-process CLIs of ``d2slam_tpu_torch.examples`` through
+    their ``main(argv)`` on the card, at their defaults (training cut in
+    length only), into ``res``; returns the kernel launches of the run."""
+    import functools
+
+    run = functools.partial(_run_cli, res)
+    csv = os.path.join(tmp, "vio.csv")
+    run("run_synthetic_vio", run_synthetic_vio, ["--out", csv],
+        lambda s: (s["device"] == "cuda" and s["ate_m"] < P_VIO_ATE
+                   and s["solves"] >= P_VIO_SOLVES and s["margins"] >= P_VIO_MARGINS))
+    stamps, _ = read_trajectory_csv(csv)
+    sim = CircleSim()
+    gt_csv = os.path.join(tmp, "gt.csv")
+    write_trajectory_csv(gt_csv, stamps, [sim.gt_pose(t)[0] for t in stamps])
+    vio_ate = res["run_synthetic_vio"]["summary"]["ate_m"]
+    run("evaluate_trajectories", evaluate_trajectories,
+        ["--est", f"0={csv}", "--gt", f"0={gt_csv}"],
+        lambda s: abs(s["drones"]["0"]["ate_m"] - vio_ate) < 1e-4)
+
+    bm.launches = 0
+    run("run_quadcam_depth", run_quadcam_depth, ["--save-viz", os.path.join(tmp, "viz")],
+        lambda s: (s["bm_launches"] == 2 * s["frames"] and len(s["pairs"]) == 4
+                   and all(WALL_DEPTH_RANGE[0] < p["median_depth_m"] < WALL_DEPTH_RANGE[1]
+                           for p in s["pairs"])))
+    bm_launches = bm.launches
+    if bm_launches != 2 * res["run_quadcam_depth"]["summary"]["frames"]:
+        fail(f"run_quadcam_depth: {bm_launches} block-matcher launches")
+
+    wdir = os.path.join(tmp, "weights")
+    run("train_frontend", train_frontend,
+        ["--steps", str(TRAIN_STEPS), "--nv-steps", str(TRAIN_STEPS), "--sg-steps", "8",
+         "--out", wdir],
+        lambda s: all(np.isfinite(s[k]["first_loss"]) for k in ("superpoint", "netvlad",
+                                                                   "superglue")))
+    # the stem kernel on the weights the trainer wrote, bf16 at 480x640
+    model = SuperPoint(load_params(os.path.join(wdir, "superpoint_synth.npz")),
+                       SuperPointConfig(compute_dtype="bfloat16"), device=dev)
+    frames = torch.rand((P_STEM_FRAMES, 1, 480, 640), generator=torch.Generator().manual_seed(0))
+    stem.launches = 0
+    with torch.no_grad():
+        outs = [superpoint_extract(model, f.to(dev)) for f in frames]
+    torch.cuda.synchronize()
+    stem_launches = stem.launches
+    if stem_launches != P_STEM_FRAMES or not all(
+            bool(torch.isfinite(o.scores).all() and torch.isfinite(o.desc).all()) for o in outs):
+        fail(f"trained-weights extraction: {stem_launches} stem launches, finite "
+             f"{[bool(torch.isfinite(o.scores).all()) for o in outs]}")
+    print("phase p.3 trained-weights extraction (bf16, 480x640): " + json.dumps(dict(
+        frames=P_STEM_FRAMES, stem_launches=stem_launches,
+        keypoints=[int(o.valid.sum()) for o in outs])), flush=True)
+
+    run("simulate_dpgo", simulate_dpgo, [], lambda s: s["ok"])
+    run("run_swarm_pgo", run_swarm_pgo, [],
+        lambda s: (s["inliers"] >= 20 and s["position_err_m"] < run_swarm_pgo.POSITION_GATE
+                   and np.allclose(s["alignment_t"], s["true_t"], atol=1e-2)))
+    return dict(bm_launches=bm_launches, stem_launches=stem_launches)
+
+
+def phase_cli(dev):
+    """(p) the host tools and the command-line entry points on the card.
+    The two multi-process CLIs run in the background from the start of
+    p.1 until the others are done, so the times of p.1-p.3 carry their
+    load on the host and the card."""
+    t0 = time.perf_counter()
+    clis = {}
+    real_stdout, sys.stdout = sys.stdout, _ThreadStdout(sys.stdout)
+    try:
+        with tempfile.TemporaryDirectory(dir=REPO) as tmp, ThreadPoolExecutor(2) as pool:
+            background = start_process_clis(pool, clis)
+            bags = tools_bags(dev, tmp)
+            print("phase p.1 (bag tools on a 4x480x640 quadcam bag, stereo-gen card against "
+                  "CPU): " + json.dumps(bags), flush=True)
+            t1 = time.perf_counter()
+            sp = tools_spy()
+            print("phase p.2 (spy over UDP multicast, one LoopNet keyframe broadcast): "
+                  + json.dumps(sp), flush=True)
+            t2 = time.perf_counter()
+            launches = tools_clis(dev, tmp, clis)
+            t3 = time.perf_counter()
+            for f in background:
+                f.result()
+    finally:
+        sys.stdout = real_stdout
+    t4 = time.perf_counter()
+    print("phase p seconds: " + json.dumps(dict(
+        bags=t1 - t0, spy=t2 - t1, clis_in_process=t3 - t2, waiting_for_background=t4 - t3,
+        per_cli={k: v["wall_s"] for k, v in clis.items() if "wall_s" in v})), flush=True)
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -3067,7 +3412,13 @@ def main():
         fail(f"stem launches {quad['stem_launches']} != frames {quad['frames']}")
 
     mark("e")
-    sysres, pnp_args = run_system(params, dev, 480, 640, 440.0, SYSTEM_FRAMES)
+    # f in a process of its own beside j (module docstring)
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(1, mp_context=spawn) as side:
+        f_future = side.submit(_system_in_child)
+        textured, room_pnp = phase_textured(params, dev)
+        mark("j")
+        sysres, pnp_args = f_future.result()
     print("phase f (D2SLAMSystem 480x640, NetVLAD fused, loops, PCM, PGO): "
           + json.dumps(sysres), flush=True)
     if (not sysres["finite"] or sysres["pgo_solves"] < 2 or sysres["loops_kept_by_pcm"] < 1
@@ -3077,8 +3428,6 @@ def main():
         fail(f"stem launches {sysres['stem_launches']} / NetVLAD runs {sysres['netvlad_runs']} "
              f"!= frames {sysres['frames']}")
     mark("f")
-    textured, room_pnp = phase_textured(params, dev)
-    mark("j")
     # PnP on the correspondences of a loop query: the textured room's
     # where it had one
     phase_pgo(dev, room_pnp if "args" in room_pnp else pnp_args)
@@ -3087,22 +3436,24 @@ def main():
     mark("h")
     phase_dynamic_start(dev)
     mark("i")
-    options = phase_options(params, dev)
-    mark("k")
     replay = phase_depth_replay(dev)
     mark("l")
-    # n.2 in the background beside m.2, m.3 and o (module docstring)
+    # n.2 and k in the background beside m.2, m.3 and o (module docstring)
     alone = superglue_alone(dev)
-    with ProcessPoolExecutor(len(FEATURE_SCENARIOS),
-                             mp_context=multiprocessing.get_context("spawn")) as pool:
+    with ProcessPoolExecutor(len(FEATURE_SCENARIOS) + 1, mp_context=spawn) as pool:
+        k_future = pool.submit(_options_in_child)
         scenarios = feature_scenarios(pool)
         swarm = phase_swarm(params, dev, alone)
         mark("m")
         tools = phase_tools(params, dev)
         mark("o")
+        options = k_future.result()
+        mark("k")
         scen = scenarios()
     multi = phase_multirobot(params, dev, scen)
     mark("n")
+    cli = phase_cli(dev)
+    mark("p")
 
     big = kernel_rows["2x480x640"]
     euroc = kernel_rows[f"2x{EUROC_H}x{EUROC_W}"]
@@ -3119,7 +3470,8 @@ def main():
                            if not k.startswith("calibration"))
                      + sum(r["stem_launches"] for r in options["calibration_from_images"].values())
                      + swarm["swarm_480x640"]["stem_launches"]
-                     + multi["full"]["stem_launches"] + tools["stem_launches"]),
+                     + multi["full"]["stem_launches"] + tools["stem_launches"]
+                     + cli["stem_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
@@ -3134,7 +3486,7 @@ def main():
         "route": "cuda",
         "source": "d2slam_tpu_torch/csrc/stereo_bm.cu",
         "replaces": "d2slam_tpu/ops/stereo_bm_pallas.py:35",
-        "launches": depth["bm_launches"] + sum(replay["bm_launches"]),
+        "launches": depth["bm_launches"] + sum(replay["bm_launches"]) + cli["bm_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in bm_rows.values()),
         "ms": frame["ms"],
         "plain_ms": frame["plain_ms"],

@@ -64,16 +64,29 @@ struct Transport {
   uint16_t out_sender = 0;
 };
 
+// errno of the last failed create or send on this thread, for the
+// caller's error message
+thread_local int g_last_errno = 0;
+
+void* fail_create(Transport* t) {
+  g_last_errno = errno;
+  if (t->fd >= 0) close(t->fd);
+  delete t;
+  return nullptr;
+}
+
 }  // namespace
 
 extern "C" {
+
+int udp_transport_errno() { return g_last_errno; }
 
 void* udp_transport_create(const char* group, int port, uint16_t self_id,
                            int loopback) {
   auto* t = new Transport();
   t->self_id = self_id;
   t->fd = socket(AF_INET, SOCK_DGRAM, 0);
-  if (t->fd < 0) { delete t; return nullptr; }
+  if (t->fd < 0) return fail_create(t);
   int reuse = 1;
   setsockopt(t->fd, SOL_SOCKET, SO_REUSEADDR, &reuse, sizeof(reuse));
   // multi-fragment keyframe bursts exceed the default ~212KB rcvbuf
@@ -86,16 +99,13 @@ void* udp_transport_create(const char* group, int port, uint16_t self_id,
   addr.sin_family = AF_INET;
   addr.sin_addr.s_addr = htonl(INADDR_ANY);
   addr.sin_port = htons(port);
-  if (bind(t->fd, (sockaddr*)&addr, sizeof(addr)) < 0) {
-    close(t->fd); delete t; return nullptr;
-  }
+  if (bind(t->fd, (sockaddr*)&addr, sizeof(addr)) < 0) return fail_create(t);
   ip_mreq mreq{};
   mreq.imr_multiaddr.s_addr = inet_addr(group);
   mreq.imr_interface.s_addr = htonl(INADDR_ANY);
   if (setsockopt(t->fd, IPPROTO_IP, IP_ADD_MEMBERSHIP, &mreq,
-                 sizeof(mreq)) < 0) {
-    close(t->fd); delete t; return nullptr;
-  }
+                 sizeof(mreq)) < 0)
+    return fail_create(t);
   unsigned char loop = loopback ? 1 : 0;
   setsockopt(t->fd, IPPROTO_IP, IP_MULTICAST_LOOP, &loop, sizeof(loop));
   unsigned char ttl = 1;
@@ -133,7 +143,7 @@ int udp_transport_send(void* h, uint16_t channel, const uint8_t* data,
     if (n) memcpy(buf.data() + sizeof(hdr), data + off, n);
     ssize_t sent = sendto(t->fd, buf.data(), buf.size(), 0,
                           (sockaddr*)&t->dest, sizeof(t->dest));
-    if (sent < 0) return -1;
+    if (sent < 0) { g_last_errno = errno; return -1; }
   }
   return 0;
 }

@@ -49,6 +49,8 @@ def _load_lib() -> ctypes.CDLL:
         lib.udp_transport_send.restype = ctypes.c_int
         lib.udp_transport_send.argtypes = [
             ctypes.c_void_p, ctypes.c_uint16, ctypes.POINTER(ctypes.c_uint8), ctypes.c_uint32]
+        lib.udp_transport_errno.restype = ctypes.c_int
+        lib.udp_transport_errno.argtypes = []
         lib.udp_transport_recv.restype = ctypes.c_int
         lib.udp_transport_recv.argtypes = [
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(ctypes.c_uint16),
@@ -65,16 +67,21 @@ class UDPMulticastTransport:
                  port: int = 7667, loopback: bool = True,
                  max_msg: int = 4 * 1024 * 1024):
         self._lib = _load_lib()
+        self._where = f"{group}:{port}"
         self._h = self._lib.udp_transport_create(group.encode(), port, self_id, int(loopback))
         if not self._h:
-            raise OSError("failed to create UDP multicast transport")
+            self._raise("cannot join the multicast group")
         self._buf = (ctypes.c_uint8 * max_msg)()
         self._max = max_msg
 
     def send(self, channel: int, data: bytes) -> None:
         arr = (ctypes.c_uint8 * len(data)).from_buffer_copy(data)
         if self._lib.udp_transport_send(self._h, channel, arr, len(data)) != 0:
-            raise OSError("udp send failed")
+            self._raise("cannot send to the multicast group")
+
+    def _raise(self, what: str) -> None:
+        err = self._lib.udp_transport_errno()
+        raise OSError(err, f"UDP multicast {self._where}: {what}: {os.strerror(err)}")
 
     def recv(self, timeout_ms: int = 0) -> Optional[Tuple[int, int, bytes]]:
         """Returns (channel, sender, payload) or None."""

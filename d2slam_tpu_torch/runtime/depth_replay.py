@@ -80,19 +80,20 @@ def _get(q: queue.Queue, stop: threading.Event, timeout_s: float):
 class DepthReplay:
     """Three-stage replay of quadcam frames over bounded queues.
 
-    pairs / cfg: as ``quadcam_depth`` (the pairs' maps on ``device``).
+    pairs / cfg / hitnet: as ``quadcam_depth`` (the pairs' maps on
+    ``device``).
     ``stats`` holds the host-clock time of each stage per frame ("raw",
     "inference", "publish") after a run."""
 
     def __init__(self, pairs: List[VirtualStereoPair], cfg: QuadcamConfig = QuadcamConfig(),
-                 *, device=None):
-        self.pairs, self.cfg = pairs, cfg
+                 *, hitnet=None, device=None):
+        self.pairs, self.cfg, self.hitnet = pairs, cfg, hitnet
         self.device = resolve_device(device)
         self.stats = {}
 
     def _infer(self, imgs, colors) -> list:
-        return _host_clouds(quadcam_depth(imgs, self.pairs, self.cfg, color_images=colors,
-                                          device=self.device))
+        return _host_clouds(quadcam_depth(imgs, self.pairs, self.cfg, hitnet=self.hitnet,
+                                          color_images=colors, device=self.device))
 
     def run(self, frames: Iterable, publish: Optional[Callable[[int, list], None]] = None,
             timeout_s: float = 60.0) -> list:

@@ -1,4 +1,5 @@
-"""Stdlib-only PNG encode/decode for 8-bit grayscale images.
+"""Stdlib-only PNG encode/decode for 8-bit grayscale images (and an
+8-bit RGB encoder for overlays).
 
 Counterpart of ``d2slam_tpu/utils/pngio.py`` (a copy: the port imports
 nothing of the JAX package). The port writes its datasets' PNGs with
@@ -24,6 +25,18 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
+def _encode(a: np.ndarray, color_type: int, level: int) -> bytes:
+    h, w = a.shape[:2]
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)  # 8-bit
+    rows = a.reshape(h, -1)
+    raw = np.empty((h, rows.shape[1] + 1), np.uint8)
+    raw[:, 0] = 0  # filter: None
+    raw[:, 1:] = rows
+    return (_SIG + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _chunk(b"IEND", b""))
+
+
 def png_encode_gray(img: np.ndarray, level: int = 6) -> bytes:
     """Encode an 8-bit grayscale image ([H, W] uint8, or float in
     [0, 1]) as a PNG byte stream."""
@@ -33,14 +46,15 @@ def png_encode_gray(img: np.ndarray, level: int = 6) -> bytes:
                     ).astype(np.uint8)
     if a.ndim != 2:
         raise ValueError(f"expected [H, W] grayscale, got {a.shape}")
-    h, w = a.shape
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)  # gray, 8-bit
-    raw = np.empty((h, w + 1), np.uint8)
-    raw[:, 0] = 0  # filter: None
-    raw[:, 1:] = a
-    return (_SIG + _chunk(b"IHDR", ihdr)
-            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
-            + _chunk(b"IEND", b""))
+    return _encode(a, 0, level)
+
+
+def png_encode_rgb(img: np.ndarray, level: int = 6) -> bytes:
+    """Encode an [H, W, 3] uint8 RGB image as a PNG byte stream."""
+    a = np.asarray(img)
+    if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] != 3:
+        raise ValueError(f"expected [H, W, 3] uint8, got {a.dtype} {a.shape}")
+    return _encode(np.ascontiguousarray(a), 2, level)
 
 
 def png_decode_gray(buf: bytes) -> np.ndarray:

@@ -19,7 +19,13 @@ the hand-written stem kernel is on the path:
       the bf16 backbone (stem kernel) and the f32 backbone: asserts the
       keyframe count, ATE < 0.03 m and the median track length;
   (c) the main path at full width: 480x640, the default estimator and
-      SuperPoint configurations, 10 frames;
+      SuperPoint configurations, 10 frames; (c.2) the device pyramidal
+      LK (``frontend.lk.lk_track_pyramidal``, 3 levels, win 21, iters
+      10) at 480x640 over the ~200 points the stereo tracker keeps in
+      the textured room of (j), against the same call on the CPU (the
+      ``ok`` masks equal, points within 0.01 px) and the tracker's native
+      host LK (95 % of the points agree within 0.05 px), with ms and
+      launches per call;
   (d) quadcam depth at full width: 4 Kannala-Brandt fisheyes 480x640
       around a textured cylinder wall -> 4 virtual stereo pairs 240x320
       -> block-matching kernel (max_disp 64, block 9) -> coloured point
@@ -161,13 +167,16 @@ the hand-written stem kernel is on the path:
       wrote go through 4 bf16 extractions at 480x640 (stem launches); the
       two multi-process CLIs run in the background from the start of p.1.
 
-The phases run in the order a, b-c, d, e, j (with f beside it in a
-process of its own), g, h, i, l, m, o, n, p; n.2's three processes and
-k's one run in the background from the end of m.1 until o is done. Each
-of these is launch-bound on one host core and leaves the card idle most
-of the time, so the side-by-side runs shorten the script by about the
-length of f and k; the times f, j, k, m.2, m.3 and o print carry the
-others' load on the host and the card (a, m.1 and n.1 are timed alone).
+Phases a and c.2 run first, alone on the host and the card. Then nine
+long runs go to a pool of ``SIDE_WORKERS`` spawned processes, one
+process a run, longest first (``SIDE_JOBS``): j's system, f, n.3, n.2's
+three scenarios, m.2, k and m.3. Meanwhile the main process runs b, c,
+d, e, j's golden scenarios, g, h, i, l, m.1 and o, and takes each side
+run's result where its phase is gated; n.1 and p follow, p after the
+pool has closed. Each run is launch-bound on one host core and leaves
+the card idle most of the time, so running them side by side shortens
+the script by most of their length; the times printed from b to o carry
+each other's load on the host and the card (a and c.2 are timed alone).
 
 The native pipeline library and LK are built with the kernels in (a).
 The launch counts of (c), (d), (e), (f), (h), (j), (k), (l), (m), (n), (o)
@@ -377,6 +386,12 @@ PGO_ATE_SLACK = 0.02
 PGO_COST_RTOL = 1e-3
 # phase c: frames at full width
 FULL_WIDTH_FRAMES = 10
+# c.2: the device LK against the same call on the CPU (px; the ``ok``
+# masks must be equal) and against the native host LK (the share of
+# points both keep that agree within LK_NATIVE_TOL px)
+LK_CPU_TOL = 1e-2
+LK_NATIVE_TOL = 0.05
+LK_NATIVE_AGREE = 0.95
 # phase f: one lap of the circle and the first 17 places again. After
 # CircleSim's 1 s speed ramp a lap takes 108.6 frames (omega 0.5 rad/s at
 # 8 Hz); frames 109-125 revisit the places of frames 3-24 within
@@ -477,6 +492,13 @@ P_STEM_FRAMES = 4
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def nvidia_smi_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, iters=50, warmup=5):
@@ -750,6 +772,73 @@ def run_sequence(params, dev, H, W, fx, n_frames, cfg, sp_cfg, tr_cfg, n_landmar
         estimator_stages={k: v["mean_ms"] for k, v in est.perf.report().items()},
         estimator_profile=prof,
     )
+
+
+def phase_device_lk(params, dev, H=480, W=640, fx=440.0):
+    """(c.2) ``lk_track_pyramidal`` on the card at (c)'s width, 3 levels,
+    win 21, iters 10, over the points the stereo tracker keeps after its
+    first frame of (j)'s textured room (the blob scene's first frame
+    holds too few keypoints), into the next frame's left view: against
+    the same call on the CPU (``ok`` masks equal, points within
+    ``LK_CPU_TOL`` px) and against the tracker's native host LK
+    (``LK_NATIVE_AGREE`` of the points either keeps kept by both within
+    ``LK_NATIVE_TOL`` px); ms and launches per call, the pyramids' build
+    apart."""
+    sim = CircleSim(seed=11, baseline=0.2, n_landmarks=10)
+    views = room_views(TexturedRoom(half=14.0, height=7.0, seed=3), sim.ext, H, W, fx)
+
+    def render(t):
+        return views(sim.gt_pose(t)[0], t)
+
+    sp_cfg = SuperPointConfig(compute_dtype="bfloat16")
+    tracker = FeatureTracker(SuperPoint(params, sp_cfg, device=dev), sp_cfg,
+                             [PinholeParams.make(fx, fx, W / 2, H / 2)] * 2, TrackerConfig(),
+                             frame_rate=sim.frame_hz, extrinsics=sim.ext)
+    tracker.process_stereo(0.0, 0, *render(0.0))
+    prev = tracker.prev
+    img0 = np.asarray(prev["img"], np.float32)
+    img1 = np.asarray(render(1.0 / sim.frame_hz)[0], np.float32)
+    pts = np.asarray(prev["pts"], np.float32)
+    valid = np.asarray(prev["valid"], bool)
+    kw = dict(win=21, iters=10, fb_thresh=0.5)
+
+    def device_call(d):
+        pa, pb = lk.build_pyramid(img0, 3, device=d), lk.build_pyramid(img1, 3, device=d)
+        p, ok = lk.lk_track_pyramidal(pa, pb, pts, valid, **kw)
+        return p.cpu().numpy(), ok.cpu().numpy(), (pa, pb)
+
+    p_gpu, ok_gpu, (pa, pb) = device_call(dev)
+    p_cpu, ok_cpu, _ = device_call(torch.device("cpu"))
+    p_nat, ok_nat = lk.lk_track_images(img0, img1, pts, valid, levels=3, **kw)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        lk.lk_track_images(img0, img1, pts, valid, levels=3, **kw)
+    native_ms = (time.perf_counter() - t0) * 1e3 / 5
+    pts_t = torch.as_tensor(pts, device=dev)
+    valid_t = torch.as_tensor(valid, device=dev)
+    ms = time_ms(lambda: lk.lk_track_pyramidal(pa, pb, pts_t, valid_t, **kw), iters=20, warmup=3)
+    pyr_ms = time_ms(lambda: (lk.build_pyramid(pa[0], 3), lk.build_pyramid(pb[0], 3)),
+                     iters=20, warmup=3)
+    launches = count_launches(lambda: lk.lk_track_pyramidal(pa, pb, pts_t, valid_t, **kw))
+    both = ok_gpu & ok_cpu
+    cpu_err = float(np.abs(p_gpu[both] - p_cpu[both]).max()) if both.any() else 0.0
+    either = ok_gpu | ok_nat
+    agree = ok_gpu & ok_nat & (np.linalg.norm(p_gpu - p_nat, axis=1) < LK_NATIVE_TOL)
+    res = dict(shape=f"{H}x{W}", levels=3, win=21, iters=10, points=int(valid.sum()),
+               ok_card=int(ok_gpu.sum()), ok_cpu=int(ok_cpu.sum()), ok_native=int(ok_nat.sum()),
+               masks_equal_cpu=bool((ok_gpu == ok_cpu).all()), max_abs_err_cpu_px=cpu_err,
+               native_agree_share=float(agree.sum() / max(either.sum(), 1)),
+               ms_per_call=ms, pyramids_ms=pyr_ms, launches_per_call=launches,
+               native_host_ms_per_call=native_ms, card=nvidia_smi_line())
+    print("phase c.2 (device pyramidal LK 480x640 against the CPU and the native LK): "
+          + json.dumps(res), flush=True)
+    if valid.sum() < 100 or ok_gpu.sum() < 0.5 * valid.sum():
+        fail(f"device LK kept too few of the tracker's points: {res}")
+    if not res["masks_equal_cpu"] or not cpu_err <= LK_CPU_TOL:
+        fail(f"device LK on the card disagrees with the CPU: {res}")
+    if not res["native_agree_share"] >= LK_NATIVE_AGREE:
+        fail(f"device LK disagrees with the native LK: {res}")
+    return res
 
 
 def profile_estimator(est, ff):
@@ -1473,16 +1562,23 @@ def textured_golden_quadcam(params, dev):
                 stem_launches=stem.launches)
 
 
-def phase_textured(params, dev):
-    """(j) the golden textured scenarios with the JAX tests' float32
-    backbone (held to their pins); then the system with loops at full
-    width in the textured room (bf16, the stem kernel's path)."""
-    vio = textured_golden_vio(params, dev)
-    quad = textured_golden_quadcam(params, dev)
+def textured_system(params, dev):
+    """(j)'s system with loops at full width in the textured room (bf16,
+    the stem kernel's path): ``run_system``'s (result, PnP arguments)."""
     sim = CircleSim(seed=11, baseline=0.2, n_landmarks=10)
     room = TexturedRoom(half=14.0, height=7.0, seed=3)
-    full, pnp_args = run_system(params, dev, 480, 640, 440.0, TEXTURED_FRAMES, sim=sim,
-                                render=room_views(room, sim.ext, 480, 640, 440.0))
+    return run_system(params, dev, 480, 640, 440.0, TEXTURED_FRAMES, sim=sim,
+                      render=room_views(room, sim.ext, 480, 640, 440.0))
+
+
+def phase_textured(params, dev, system=None):
+    """(j) the golden textured scenarios with the JAX tests' float32
+    backbone (held to their pins); then the system with loops at full
+    width in the textured room (``system``, ``textured_system``'s result,
+    run here when it is None)."""
+    vio = textured_golden_vio(params, dev)
+    quad = textured_golden_quadcam(params, dev)
+    full, pnp_args = system if system is not None else textured_system(params, dev)
     vio.pop("poses")
     res = dict(golden_vio=vio, golden_quadcam=quad, system_480x640=full)
     print("phase j (textured room: golden 240x320 stereo and quadcam, stereo with the bf16 "
@@ -1982,7 +2078,8 @@ def swarm_run(params, dev, H, W, fx, n_frames, compute_dtype, superglue_local=Fa
             s.poll_network(now=t_prev)
     res = dict(frames_per_robot=n_frames, hw=[H, W], compute_dtype=compute_dtype,
                superglue_local=superglue_local, stem_launches=stem.launches,
-               aligned=bool(systems[1].swarm.alignments))
+               aligned=bool(systems[1].swarm.alignments),
+               merged_drones=[s.drone_id for s in systems if s.ref_frame_id != s.drone_id])
     for s in systems:
         s.solve_pgo()
     wall = time.perf_counter() - t_run
@@ -2025,14 +2122,26 @@ def swarm_run(params, dev, H, W, fx, n_frames, compute_dtype, superglue_local=Fa
     return res, systems
 
 
-def phase_swarm(params, dev, alone):
+def swarm_golden(params, dev):
+    """(m.2) the JAX golden textured swarm at 240x320 with the test's
+    float32 backbone."""
+    return swarm_run(params, dev, 240, 320, 220.0, SWARM_GOLDEN_FRAMES, "float32")[0]
+
+
+def swarm_full(params, dev):
+    """(m.3) two robots at 480x640 with the bf16 stem, SuperGlue local and
+    remote."""
+    return swarm_run(params, dev, 480, 640, 440.0, SWARM_FULL_FRAMES, "bfloat16",
+                     superglue_local=True)[0]
+
+
+def phase_swarm(params, dev, alone, golden=None, full=None):
     """(m) the swarm on the card: ``alone``, SuperGlue alone (m.1,
-    ``superglue_alone``); the JAX golden textured swarm at 240x320 with
-    the test's float32 backbone, gated by its pins (m.2); two robots at
-    480x640 with the bf16 stem, SuperGlue local and remote (m.3)."""
-    golden, _ = swarm_run(params, dev, 240, 320, 220.0, SWARM_GOLDEN_FRAMES, "float32")
-    full, systems = swarm_run(params, dev, 480, 640, 440.0, SWARM_FULL_FRAMES, "bfloat16",
-                              superglue_local=True)
+    ``superglue_alone``); ``golden`` (m.2, ``swarm_golden``), gated by the
+    JAX test's pins; ``full`` (m.3, ``swarm_full``); each run here when it
+    is None."""
+    golden = swarm_golden(params, dev) if golden is None else golden
+    full = swarm_full(params, dev) if full is None else full
     res = dict(superglue=alone, golden_textured_swarm_f32=golden, swarm_480x640=full)
     print("phase m (swarm: SuperGlue alone, golden textured swarm 240x320, two robots "
           "480x640 with SuperGlue local and remote): " + json.dumps(res), flush=True)
@@ -2042,10 +2151,9 @@ def phase_swarm(params, dev, alone):
             and golden["ref_frame_ids"] == [0, 0]
             and golden["joint_rmse_m"] < SWARM_JOINT_RMSE):
         fail(f"golden textured swarm out of its pins: {golden}")
-    merged = [s for s in systems if s.ref_frame_id != s.drone_id]
     if not (full["aligned"] and full["inter_loops"] >= 1 and full["finite"]
             and any(r["pgo_solves"] >= 1 for r in full["robots"])
-            and [s.drone_id for s in merged] == [1]):
+            and full["merged_drones"] == [1]):
         fail(f"480x640 swarm did not align, merge and solve: {full}")
     if full["stem_launches"] != 2 * full["frames_per_robot"]:
         fail(f"phase m: stem launches {full['stem_launches']} != 2 robots x "
@@ -2517,42 +2625,35 @@ def _child_setup():
     return torch.device("cuda")
 
 
-def _system_in_child():
-    """(f) in a process of its own, beside (j): both are launch-bound on
-    one host core and leave the card idle most of the time."""
-    return run_system(load_params(WEIGHTS), _child_setup(), 480, 640, 440.0, SYSTEM_FRAMES)
-
-
-def _options_in_child():
-    """(k) in a process of its own, beside n.2, m.2, m.3 and o."""
-    return phase_options(load_params(WEIGHTS), _child_setup())
-
-
-def _scenario_in_child(name):
-    """One n.2 scenario in a process of its own (spawned: the card needs
-    a fresh CUDA context)."""
-    fn = {"server": feature_server, "dpgo": feature_dpgo,
-          "distributed": feature_distributed}[name]
-    return fn(_child_setup())
+def _side_job(name):
+    """One of ``SIDE_JOBS`` in a spawned process of its own (the card needs
+    a fresh CUDA context): its result, as the phase's own function gives
+    it."""
+    dev = _child_setup()
+    if name in FEATURE_SCENARIOS:
+        return {"server": feature_server, "dpgo": feature_dpgo,
+                "distributed": feature_distributed}[name](dev)
+    params = load_params(WEIGHTS)
+    if name == "f":
+        return run_system(params, dev, 480, 640, 440.0, SYSTEM_FRAMES)
+    return {"j": textured_system, "k": phase_options, "m.2": swarm_golden,
+            "m.3": swarm_full, "n.3": distributed_full_run}[name](params, dev)
 
 
 FEATURE_SCENARIOS = ("server", "dpgo", "distributed")
+# main()'s side jobs, longest first (the pool starts them in this order):
+# each is launch-bound on one host core and leaves the card idle most of
+# the time, so SIDE_WORKERS of them run beside main()'s own line
+SIDE_JOBS = ("j", "f", "n.3", "distributed", "m.2", "k", "dpgo", "m.3", "server")
+SIDE_WORKERS = 3
 
 
 def feature_scenarios(pool):
     """(n.2) start the three feature-level scenarios on ``pool``, each in
-    a process of its own, side by side: each is launch-bound on one host
-    core and leaves the card idle most of the time (their wall times are
-    read with that sharing). Returns a function that waits for them and
-    gives their results; a scenario's failure fails the run."""
-    t0 = time.perf_counter()
-    futures = {n: pool.submit(_scenario_in_child, n) for n in FEATURE_SCENARIOS}
-
-    def results():
-        res = {n: f.result() for n, f in futures.items()}
-        res["side_by_side_wall_s"] = time.perf_counter() - t0
-        return res
-    return results
+    a process of its own, side by side. Returns a function that waits for
+    them and gives their results; a scenario's failure fails the run."""
+    futures = {n: pool.submit(_side_job, n) for n in FEATURE_SCENARIOS}
+    return lambda: {n: f.result() for n, f in futures.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -3047,15 +3148,16 @@ def phase_tools(params, dev):
     return dict(stem_launches=stem_launches)
 
 
-def phase_multirobot(params, dev, scen):
+def phase_multirobot(params, dev, scen, full=None):
     """(n) multi-robot estimation and distributed PGO: n.1 batched over 4
     robots; ``scen``, the results of n.2 (``feature_scenarios``), the JAX
-    package's feature-level system scenarios with their pins; n.3 two
-    robots at full width in distributed mode with DPGO and a server."""
+    package's feature-level system scenarios with their pins; ``full``
+    (n.3, ``distributed_full_run``, run here when it is None), two robots
+    at full width in distributed mode with DPGO and a server."""
     batched = phase_multirobot_batched(dev)
     print("phase n.2 (feature-level system scenarios: server, DPGO, distributed): "
           + json.dumps(scen), flush=True)
-    full = distributed_full_run(params, dev)
+    full = distributed_full_run(params, dev) if full is None else full
     print("phase n.3 (two robots 480x640, distributed with DPGO, a server): "
           + json.dumps(full), flush=True)
     if not (full["ref_frame_ids"] == [0, 0] and full["finite"]
@@ -3350,21 +3452,10 @@ def phase_cli(dev):
     return launches
 
 
-def main():
-    t_start = time.perf_counter()
-
-    def mark(phases):
-        print(f"chip_smoke: phases {phases} done at {time.perf_counter() - t_start:.1f} s",
-              flush=True)
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    params = load_params(WEIGHTS)
-    kernel_rows = phase_kernels(params, dev)
-    bm_rows = phase_bm_kernel(dev)
-    mark("a")
-
+def main_line(params, dev, mark):
+    """Phases b, c, d and e: the golden stereo scenario (both backbones),
+    the main path at full width, quadcam depth and quadcam VIO. Returns
+    (c's result, e's result, d's result)."""
     res = {}
     for cdt in ("bfloat16", "float32"):
         sp_cfg = SuperPointConfig(max_keypoints=150, threshold=0.010, nms_radius=4,
@@ -3393,7 +3484,6 @@ def main():
         fail(f"full-width run: finite={res['finite']} solves={res['solves']}")
     if res["stem_launches"] != res["frames"]:
         fail(f"stem launches {res['stem_launches']} != frames {res['frames']}")
-
     mark("b-c")
     depth = phase_quadcam_depth(dev)
     mark("d")
@@ -3410,48 +3500,68 @@ def main():
         fail(f"quadcam VIO out of its pins: {quad}")
     if quad["stem_launches"] != quad["frames"]:
         fail(f"stem launches {quad['stem_launches']} != frames {quad['frames']}")
-
     mark("e")
-    # f in a process of its own beside j (module docstring)
+    return res, quad, depth
+
+
+def main():
+    t_start = time.perf_counter()
+
+    def mark(phases):
+        print(f"chip_smoke: phases {phases} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    params = load_params(WEIGHTS)
+    kernel_rows = phase_kernels(params, dev)
+    bm_rows = phase_bm_kernel(dev)
+    phase_device_lk(params, dev)
+    mark("a, c.2")
+
+    # the side jobs run in processes of their own beside this line
+    # (module docstring); a failure here cancels those not yet started
     spawn = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(1, mp_context=spawn) as side:
-        f_future = side.submit(_system_in_child)
-        textured, room_pnp = phase_textured(params, dev)
+    pool = ProcessPoolExecutor(SIDE_WORKERS, mp_context=spawn, max_tasks_per_child=1)
+    try:
+        side = {name: pool.submit(_side_job, name) for name in SIDE_JOBS}
+        res, quad, depth = main_line(params, dev, mark)
+        textured, room_pnp = phase_textured(params, dev, side["j"].result())
         mark("j")
-        sysres, pnp_args = f_future.result()
-    print("phase f (D2SLAMSystem 480x640, NetVLAD fused, loops, PCM, PGO): "
-          + json.dumps(sysres), flush=True)
-    if (not sysres["finite"] or sysres["pgo_solves"] < 2 or sysres["loops_kept_by_pcm"] < 1
-            or not sysres["ate_pgo_m"] <= sysres["ate_ego_m"] + PGO_ATE_SLACK):
-        fail(f"single-robot system out of its pins: {sysres}")
-    if sysres["stem_launches"] != sysres["frames"] or sysres["netvlad_runs"] != sysres["frames"]:
-        fail(f"stem launches {sysres['stem_launches']} / NetVLAD runs {sysres['netvlad_runs']} "
-             f"!= frames {sysres['frames']}")
-    mark("f")
-    # PnP on the correspondences of a loop query: the textured room's
-    # where it had one
-    phase_pgo(dev, room_pnp if "args" in room_pnp else pnp_args)
-    mark("g")
-    dataset = phase_dataset(params, dev)
-    mark("h")
-    phase_dynamic_start(dev)
-    mark("i")
-    replay = phase_depth_replay(dev)
-    mark("l")
-    # n.2 and k in the background beside m.2, m.3 and o (module docstring)
-    alone = superglue_alone(dev)
-    with ProcessPoolExecutor(len(FEATURE_SCENARIOS) + 1, mp_context=spawn) as pool:
-        k_future = pool.submit(_options_in_child)
-        scenarios = feature_scenarios(pool)
-        swarm = phase_swarm(params, dev, alone)
-        mark("m")
+        sysres, pnp_args = side["f"].result()
+        print("phase f (D2SLAMSystem 480x640, NetVLAD fused, loops, PCM, PGO): "
+              + json.dumps(sysres), flush=True)
+        if (not sysres["finite"] or sysres["pgo_solves"] < 2 or sysres["loops_kept_by_pcm"] < 1
+                or not sysres["ate_pgo_m"] <= sysres["ate_ego_m"] + PGO_ATE_SLACK):
+            fail(f"single-robot system out of its pins: {sysres}")
+        if (sysres["stem_launches"] != sysres["frames"]
+                or sysres["netvlad_runs"] != sysres["frames"]):
+            fail(f"stem launches {sysres['stem_launches']} / NetVLAD runs "
+                 f"{sysres['netvlad_runs']} != frames {sysres['frames']}")
+        mark("f")
+        # PnP on the correspondences of a loop query: the textured room's
+        # where it had one
+        phase_pgo(dev, room_pnp if "args" in room_pnp else pnp_args)
+        mark("g")
+        dataset = phase_dataset(params, dev)
+        mark("h")
+        phase_dynamic_start(dev)
+        mark("i")
+        replay = phase_depth_replay(dev)
+        mark("l")
+        alone = superglue_alone(dev)
         tools = phase_tools(params, dev)
-        mark("o")
-        options = k_future.result()
+        mark("m.1, o")
+        swarm = phase_swarm(params, dev, alone, side["m.2"].result(), side["m.3"].result())
+        mark("m")
+        options = side["k"].result()     # gated in its process (phase_options)
         mark("k")
-        scen = scenarios()
-    multi = phase_multirobot(params, dev, scen)
-    mark("n")
+        scen = {n: side[n].result() for n in FEATURE_SCENARIOS}
+        multi = phase_multirobot(params, dev, scen, side["n.3"].result())
+        mark("n")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
     cli = phase_cli(dev)
     mark("p")
 
@@ -3494,9 +3604,7 @@ def main():
         "bound_by": frame["bound_by"],
         "library_ms": None,   # no single PyTorch call computes it
     }]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi_line()
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

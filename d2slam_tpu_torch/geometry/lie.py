@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from d2slam_tpu_torch.utils.device import resolve_device
+
 
 def _const(vals, like):
     return torch.tensor(vals, dtype=like.dtype, device=like.device)
@@ -25,6 +27,12 @@ def _const(vals, like):
 # ---------------------------------------------------------------------------
 # Quaternions (xyzw)
 # ---------------------------------------------------------------------------
+
+
+def quat_identity(dtype=torch.float32, device=None):
+    """The identity rotation ``[0, 0, 0, 1]`` on ``device`` (default
+    ``cuda``)."""
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=resolve_device(device))
 
 
 def quat_mul(q1, q2):
@@ -150,6 +158,11 @@ def so3_log_quat(q):
     return k * qv
 
 
+def so3_log(R):
+    """Logarithm map rotation matrix -> rotation vector."""
+    return so3_log_quat(rotmat_to_quat(R))
+
+
 def so3_exp(theta):
     return quat_to_rotmat(so3_exp_quat(theta))
 
@@ -205,6 +218,12 @@ def quat_average(qs, weights=None):
 # ---------------------------------------------------------------------------
 # SE(3) poses as flat [p(3), q(4)] tensors
 # ---------------------------------------------------------------------------
+
+
+def pose_identity(dtype=torch.float32, device=None):
+    """The identity pose ``[0, 0, 0, 0, 0, 0, 1]`` on ``device`` (default
+    ``cuda``)."""
+    return torch.tensor([0.0, 0, 0, 0, 0, 0, 1], dtype=dtype, device=resolve_device(device))
 
 
 def pose_compose(a, b):

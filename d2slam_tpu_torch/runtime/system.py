@@ -638,32 +638,23 @@ class D2SLAMSystem:
     def _make_entry(self, ff: FrontendFrame, pose: np.ndarray,
                     desc_of: Optional[Dict[int, np.ndarray]] = None) -> Optional[KeyframeEntry]:
         """A retrieval-DB entry from all views' observations and the
-        current landmark estimates (quadcam entries carry the camera
-        index of each keypoint for multi-direction matching).
-        ``desc_of``: the keyframe's descriptors by landmark id, taken when
-        the frame was tracked (default: ``_entry_descriptors()`` now).
-
-        Each landmark enters once, from the first view that sees it. The
-        JAX package enters it once per view with the same descriptor
-        (its descriptors are looked up by landmark id), so a stereo
-        entry holds every descriptor twice and the ratio test of the loop
-        matcher, which compares a keypoint's two nearest neighbours,
-        rejects almost every match."""
+        current landmark estimates: one record per observation, each with
+        the camera index of its view, so a landmark that two views see
+        enters twice with the same descriptor. The loop detector matches
+        view against view (``LoopDetector._match_views``), so the ratio
+        test never meets a landmark's own copy. ``desc_of``: the
+        keyframe's descriptors by landmark id, taken when the frame was
+        tracked (default: ``_entry_descriptors()`` now)."""
         if desc_of is None:
             desc_of = self._entry_descriptors()
-        ids, cams, rays, seen = [], [], [], set()
+        ids, cams, rays = [], [], []
         for o in ff.observations:
-            for lid, ray in zip(o.landmark_ids, np.asarray(o.rays, np.float64)):
-                if int(lid) in seen:
-                    continue
-                seen.add(int(lid))
-                ids.append(int(lid))
-                cams.append(o.cam_id)
-                rays.append(ray)
+            ids.extend(int(i) for i in o.landmark_ids)
+            cams.extend([o.cam_id] * len(o.landmark_ids))
+            rays.extend(np.asarray(o.rays, np.float64))
         if not ids:
             return None
-        D = self.detector.cfg.desc_dim
-        zero = np.zeros(D, np.float32)
+        zero = np.zeros(self.detector.cfg.desc_dim, np.float32)
         desc = np.stack([desc_of.get(lid, zero) for lid in ids])
         return KeyframeEntry(
             frame_id=ff.frame_id, drone_id=self.drone_id, stamp=ff.stamp,
@@ -694,19 +685,16 @@ class D2SLAMSystem:
                      entry: Optional[KeyframeEntry],
                      desc_of: Optional[Dict[int, np.ndarray]] = None
                      ) -> Optional[RemoteKeyframePacket]:
-        """The keyframe's wire packet. An entry that carries its landmark
-        ids (``_make_entry``'s: each landmark once, from the first view
-        that sees it) gives one record per landmark with that view's
-        camera; a caller's entry without ids gives camera 0's
-        observations, as in the JAX package. (The JAX package tests
-        ``len(lm_ids) == n_obs`` for the first, which an entry listing each
-        landmark once fails: it would drop view 1's keypoints.)"""
+        """The keyframe's wire packet: the records of an entry built from
+        every view (``_make_entry``'s), else camera 0's observations (a
+        caller's entry, as the oracle-frontend scenarios give)."""
         if entry is None:
             entry = self._make_entry(ff, pose, desc_of)
         if entry is None:
             return None
         est = self.estimator
-        if len(entry.lm_ids) == len(entry.kpt_valid):
+        n_obs = sum(len(o.landmark_ids) for o in ff.observations)
+        if len(entry.lm_ids) == len(entry.kpt_valid) == n_obs:
             lm_ids = np.asarray(entry.lm_ids, np.int64)
             lm_cam = np.asarray(entry.kpt_cam, np.uint8)
             lm_rays = np.asarray(entry.kpt_rays, np.float32)

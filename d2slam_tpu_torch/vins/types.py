@@ -25,6 +25,11 @@ def global_frame_id(drone_id: int, frame_id: int) -> int:
     return int(drone_id) * GID_SHIFT + (int(frame_id) & (GID_SHIFT - 1))
 
 
+def split_global_id(gid: int) -> "tuple[int, int]":
+    """Inverse of :func:`global_frame_id`: ``(drone_id, frame_id)``."""
+    return int(gid) // GID_SHIFT, int(gid) % GID_SHIFT
+
+
 @dataclasses.dataclass
 class CameraObservations:
     """Per-camera landmark observations of one frame."""

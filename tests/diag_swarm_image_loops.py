@@ -1,6 +1,6 @@
 """Loop-by-loop diagnosis of the port's two-robot swarms on the CPU.
 
-    python -m tests.diag_swarm_image_loops VARIANT [--no-superglue] [--textured]
+    python -m tests.diag_swarm_image_loops VARIANT [--no-superglue] [--textured] [--seed N]
 
 Runs the image-level blob swarm of
 tests/test_torch_distributed_system.py::test_golden_swarm_image_level
@@ -12,16 +12,23 @@ truth, its PnP inliers), PCM's last mask on robot 1's graph, each
 robot's map alignments, and the joint RMSE of the peer's keyframes in
 each robot's graph:
 
-- ``port``: the port as it is;
-- ``jax_entries``: keyframe entries that list a landmark once per view
-  (the JAX package's, tests/test_torch_image_witness.py);
+- ``port``: the port as it is (keyframe entries that list a landmark
+  once per view, as the JAX package's; the loop matcher run per
+  camera-direction pair; a landmark's matches dropped where its views
+  match different candidate landmarks, else its first view's kept);
+- ``per_pair``: per-pair matching alone, every matched record kept;
+- ``pooled``: every view of the pair in one matcher call, then the
+  dominant camera offset kept (the JAX package's matching);
 - ``half_desc``: descriptors rounded to float16 (the JAX tracker's);
-- ``jax``: both;
-- ``per_view_first_record``: entries per view, the database side of the
-  loop matcher limited to each landmark's first record (so the ratio
-  test never compares a landmark with itself).
+- ``jax``: ``pooled`` and ``half_desc``: the JAX package's layout,
+  matching and descriptors;
+- ``per_view_first_record``: pooled, the database side of the loop
+  matcher limited to each landmark's first record (so the ratio test
+  never compares a landmark with itself).
 
-``--no-superglue`` puts the kNN matcher on the loop candidates.
+``--no-superglue`` puts the kNN matcher on the loop candidates. ``--seed``
+(default 7, the tests') seeds both robots' ``CircleSim`` and the blobs'
+signatures: the spread of the readings over seeds.
 """
 import argparse
 import os
@@ -39,7 +46,7 @@ from d2slam_tpu_torch.utils import np_lie
 from d2slam_tpu_torch.utils.render import TexturedRoom, make_signatures, render_blobs
 from d2slam_tpu_torch.utils.sim import CircleSim
 
-VARIANTS = ("port", "jax_entries", "half_desc", "jax", "per_view_first_record")
+VARIANTS = ("port", "per_pair", "pooled", "half_desc", "jax", "per_view_first_record")
 WDIR = os.path.join(os.path.dirname(__file__), "..", "weights")
 SP_W = os.path.join(WDIR, "superpoint_synth.npz")
 NV_W = os.path.join(WDIR, "netvlad_synth.npz")
@@ -62,23 +69,39 @@ def _first_record_matching(system):
     system.detector._refresh_positions = first_only
 
 
-def _apply(system, variant):
-    from tests.test_torch_image_witness import _entries_per_view, _half_descriptors
+def _per_pair_only(system):
+    """Per-pair matching with every matched record kept: the detector's
+    ``_match_pairs`` without ``_match_views``' two rules."""
+    det = system.detector
+    match_views = det._match_views
 
-    if variant in ("jax_entries", "jax", "per_view_first_record"):
-        _entries_per_view(system)
+    def only(entry, old, knn=False):
+        n_views = int(max(entry.kpt_cam.max(initial=0), old.kpt_cam.max(initial=0))) + 1
+        if n_views == 1:
+            return match_views(entry, old, knn)
+        return det._match_pairs(entry, old, n_views, knn)
+    det._match_views = only
+
+
+def _apply(system, variant):
+    from tests.test_torch_image_witness import _half_descriptors, _pooled_matching
+
+    if variant in ("pooled", "jax", "per_view_first_record"):
+        _pooled_matching(system)
+    if variant == "per_pair":
+        _per_pair_only(system)
     if variant in ("half_desc", "jax"):
         _half_descriptors(system)
     if variant == "per_view_first_record":
         _first_record_matching(system)
 
 
-def _systems(variant, textured, superglue):
+def _systems(variant, textured, superglue, seed):
     from tests.test_torch_golden_textured import _cfg
     from tests.test_torch_system import small_config
 
     H, W, F = 240, 320, 220.0
-    sims = [CircleSim(seed=7, baseline=0.2, n_landmarks=10 if textured else 150, phase=ph)
+    sims = [CircleSim(seed=seed, baseline=0.2, n_landmarks=10 if textured else 150, phase=ph)
             for ph in (0.0, 0.3)]
     bus, systems, pcm = LocalBus(), [], []
     for i, sim in enumerate(sims):
@@ -112,9 +135,9 @@ def _systems(variant, textured, superglue):
     return sims, systems, pcm
 
 
-def run(variant, textured=False, superglue=True):
+def run(variant, textured=False, superglue=True, seed=7):
     H, W, F = 240, 320, 220.0
-    sims, systems, pcm = _systems(variant, textured, superglue)
+    sims, systems, pcm = _systems(variant, textured, superglue, seed)
     if textured:
         from tests.test_torch_golden_textured import _render
         room = TexturedRoom(half=14.0, height=7.0, seed=3)
@@ -124,7 +147,7 @@ def run(variant, textured=False, superglue=True):
     else:
         inten = sims[0].rng.uniform(0.5, 1.0, len(sims[0].lms))
         sims[1].lms = sims[0].lms
-        sigs = make_signatures(len(sims[0].lms), seed=7)
+        sigs = make_signatures(len(sims[0].lms), seed=seed)
 
         def frames(sim, t):
             pose = sim.gt_pose(t)[0]
@@ -154,7 +177,7 @@ def run(variant, textured=False, superglue=True):
     for s in systems:
         for (d, f, t, _) in s._pgo_meta:
             stamp.setdefault((d, f), t)
-    print(f"variant {variant}{'' if superglue else ', kNN loop matcher'} "
+    print(f"variant {variant}{'' if superglue else ', kNN loop matcher'}, seed {seed} "
           f"({'golden textured' if textured else 'image-level blob'} swarm)")
     for s in systems:
         print(f"robot {s.drone_id}: alignments {sorted(s.swarm.alignments)}")
@@ -191,5 +214,6 @@ if __name__ == "__main__":
     ap.add_argument("variant", choices=VARIANTS)
     ap.add_argument("--no-superglue", action="store_true")
     ap.add_argument("--textured", action="store_true")
+    ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
-    run(args.variant, args.textured, not args.no_superglue)
+    run(args.variant, args.textured, not args.no_superglue, args.seed)

@@ -19,9 +19,10 @@ JAX package's slow system scenarios, with their pins, in both packages
 test_two_robot_transport_dpgo, test_two_robot_distributed_camera_consensus),
 and port mirrors of tests/test_distributed_estimator.py::
 test_divergent_windows_consensus and tests/test_golden_swarm_image.py with
-their pins. The port as it is misses the image-level swarm's pin (0.744
-against 0.65 m); with the JAX package's keyframe entries and float16
-descriptors it reads the JAX package's 0.52 m (ROADMAP Queue 3).
+their pins. The port as it is misses the image-level swarm's pin (0.755
+against 0.65 m); with the JAX package's loop matching (all views in one
+call) and float16 descriptors it reads the JAX package's 0.52 m (ROADMAP
+Queue 3).
 """
 import os
 import threading
@@ -513,11 +514,12 @@ def test_golden_swarm_image_level(entries):
     inter-robot loop, the alignment and the joint PGO within its pin.
 
     ``entries="jax"`` puts the JAX package's two differences into the
-    port (keyframe entries listing a landmark once per view, descriptors
+    port (its loop matching of every view in one call, descriptors
     rounded to float16; tests/test_torch_image_witness.py): the JAX
-    package reads 0.519 m here, the port so 0.521 m. The port as it is
-    reads 0.744 m and misses the pin (ROADMAP Queue 3)."""
-    from tests.test_torch_image_witness import _entries_per_view, _half_descriptors
+    package reads 0.519 m here, the port so 0.521 m. The port as it is,
+    matching per camera-direction pair, reads 0.755 m and misses the pin
+    (ROADMAP Queue 3)."""
+    from tests.test_torch_image_witness import _half_descriptors, _pooled_matching
     from tests.test_golden_swarm_image import GOLDEN_SWARM_IMAGE_RMSE, NV_W, SG_W, SP_W
     from d2slam_tpu_torch.comm.transport import LocalBus
     from d2slam_tpu_torch.config import D2Config
@@ -554,7 +556,7 @@ def test_golden_swarm_image_level(entries):
                                         min_match_per_dir=4, pnp_thresh=16.0 / 460.0),
             frame_rate=sim.frame_hz, device="cpu"))
         if entries == "jax":
-            _entries_per_view(systems[-1])
+            _pooled_matching(systems[-1])
             _half_descriptors(systems[-1])
     t_prev = 0.0
     for k in range(26):

@@ -6,8 +6,11 @@ package's scripts on the same inputs; the other entry points are held
 to the pins of their JAX tests, since each library under them was held
 to the JAX package in its own parity tests. The two multi-process
 entry points run as subprocesses. ``test_every_jax_module_has_a_port``
-keeps the list of what is not ported, with the reason for each, whole.
+keeps the list of what is not ported, with the reason for each, whole;
+``test_every_jax_public_name_has_a_port`` does the same for each public
+function, class and method of the ported files.
 """
+import ast
 import importlib.util
 import json
 import os
@@ -72,6 +75,56 @@ NOT_PORTED = {
 }
 
 
+# public names of the ported JAX files whose port goes by another name
+# (a top-level function or class, or ``Class.method``, in the port package)
+RENAMED_NAMES = {
+    "permute_prior_frames": "permute_prior_device",
+    "superglue_logP": "SuperGlue.logP",
+    "superglue_match": "SuperGlue.match",
+    "netvlad_apply": "NetVLAD.forward",
+    "superpoint_init": "random_params",
+    "stem_reference": "stem_plain",
+    "block_match_disparity_pallas": "stereo_bm",
+    "compact_placement": "compact_cols",
+    "place_block": "place_cols",
+}
+_ONE_HOT = ("one-hot matmul in place of a TPU gather or scatter; the port indexes, "
+            "gathers and scatters (index_add_, scatter_add_) directly")
+_UNUSED_COLS = ("read by nothing in the JAX package either; the port writes the window's "
+                "interleaved offsets (15 w, 15 w + 6) where it uses them")
+_EMPTY = ("an all-invalid padded container for jitted code to fill; the port fills host "
+          "arrays at the padded size and uploads them once (vins/estimator.py, "
+          "utils/synthetic.py, runtime/system.py)")
+# public names of the ported JAX files that have no port, and why
+NOT_PORTED_NAMES = {
+    "bucketed": "XLA shape bucketing against recompiles of jitted matchers; torch runs "
+                "any point count eagerly",
+    "take_row": _ONE_HOT,
+    "take_flags": _ONE_HOT,
+    "expand_lm_cols": "lifts one-hot row blocks to the pos3d layout before they are "
+                      "concatenated; the port's pos3d rows carry [N, 3] landmark columns",
+    "zero_normal": "the zero Normal pytree that the jitted assembly sums into; the port "
+                   "builds each Normal by index_add_ in one pass",
+    "add_normals": "tree_map sum of two Normal pytrees for the jitted assembly; the port "
+                   "builds each Normal in one pass",
+    "PGOLayout.D_pad": "pads the pose-graph tangent dimension to the MXU's 128 lanes; the "
+                       "port's Cholesky factors the true D = N * dof",
+    "OnnxModule.jit": "jax.jit of the lowered graph; the port's module runs eagerly on "
+                      "the card",
+    "QuantizedModule.jit": "jax.jit of the int8 graph; the port's module runs eagerly on "
+                           "the card",
+    "TrackedFeature": "a dataclass that nothing in the JAX package reads; the tracker "
+                      "keeps its features in arrays",
+    "VIOLayout.FRAME_DIM": _UNUSED_COLS,
+    "VIOLayout.pose_col": _UNUSED_COLS,
+    "VIOLayout.sb_col": _UNUSED_COLS,
+    "ProjMeas.empty": _EMPTY,
+    "PriorBlock.empty": _EMPTY,
+    "PGOState.zeros": _EMPTY,
+    "PGOEdges.empty": _EMPTY,
+}
+
+
 def _summary(out: str) -> dict:
     """The JSON summary an entry point prints last."""
     return json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
@@ -113,6 +166,65 @@ def test_every_jax_module_has_a_port():
     assert not stale, f"entries for files that are gone: {stale}"
     assert all(len(reason) > 20 for reason in NOT_PORTED.values())
 
+
+
+def _public_names(path: pathlib.Path):
+    """Public top-level functions and classes of a module, and each public
+    method of its public classes as ``Class.method``."""
+    out = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)) \
+                and not node.name.startswith("_"):
+            out.append(node.name)
+            if isinstance(node, ast.ClassDef):
+                out += [f"{node.name}.{m.name}" for m in node.body
+                        if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))
+                        and not m.name.startswith("_")]
+    return out
+
+
+def _defined_names(path: pathlib.Path):
+    """Every function and class a module defines (nested ones too), each
+    class's methods as ``Class.method``, and its top-level assignments."""
+    tree = ast.parse(path.read_text())
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        if isinstance(node, ast.ClassDef):
+            out |= {f"{node.name}.{m.name}" for m in node.body
+                    if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))}
+    for node in tree.body:
+        targets = node.targets if isinstance(node, ast.Assign) else (
+            [node.target] if isinstance(node, ast.AnnAssign) else [])
+        out |= {t.id for t in targets if isinstance(t, ast.Name)}
+    return out
+
+
+def test_every_jax_public_name_has_a_port():
+    """Each public function, class and method of a JAX file that has a
+    port has a counterpart of the same name anywhere in the port package,
+    an entry in ``RENAMED_NAMES`` whose target the port defines, or a
+    reason in ``NOT_PORTED_NAMES``. Entries for names that are gone, or
+    that the port defines under their own name, fail as stale."""
+    port = set()
+    for p in (ROOT / "d2slam_tpu_torch").rglob("*.py"):
+        port |= _defined_names(p)
+    jax_files = [p for p in [*(ROOT / "d2slam_tpu").rglob("*.py"),
+                             *(ROOT / "examples").glob("*.py"), *(ROOT / "tools").glob("*.py")]
+                 if p.relative_to(ROOT).as_posix() not in NOT_PORTED]
+    public = {name for p in jax_files for name in _public_names(p)}
+    missing = sorted(n for n in public - port
+                     if n not in RENAMED_NAMES and n not in NOT_PORTED_NAMES)
+    assert not missing, ("JAX public names with neither a port, a rename in RENAMED_NAMES "
+                         f"nor a reason in NOT_PORTED_NAMES: {missing}")
+    listed = {**RENAMED_NAMES, **NOT_PORTED_NAMES}
+    assert not set(RENAMED_NAMES) & set(NOT_PORTED_NAMES)
+    stale = sorted(n for n in listed if n not in public or n in port)
+    assert not stale, f"entries for names that are gone or ported under their own name: {stale}"
+    unknown = sorted(t for t in RENAMED_NAMES.values() if t not in port)
+    assert not unknown, f"renames to names the port does not define: {unknown}"
+    assert all(len(reason) > 20 for reason in NOT_PORTED_NAMES.values())
 
 @pytest.mark.parametrize("cli, argv", [
     (run_synthetic_vio, []), (run_quadcam_depth, []), (simulate_dpgo, []),

@@ -9,7 +9,12 @@ CPU, mirroring tests/test_pnp_loop.py:
   between LAPACK, cuSOLVER and XLA; the fix-ups make the pose agree);
 * ``LoopDetector.detect``: the same ``LoopEdge`` (frame ids, inliers,
   ``rel_pose`` to 1e-6) end to end, with the homography gate, through
-  the gravity gate and with the automatic retrieval threshold.
+  the gravity gate and with the automatic retrieval threshold;
+* the port's matching of multi-view entries per camera-direction pair:
+  matches where the pooled ratio test of all views finds none, the
+  winning view offset, the cross-view check, one match per landmark
+  (the loop's inliers count landmarks), one learned-matcher call per
+  view pair, and a single-view pair matched as one call, as before.
 """
 import numpy as np
 import pytest
@@ -19,6 +24,7 @@ import d2slam_tpu.frontend.loop_detector as jld
 import d2slam_tpu.frontend.pnp as jpnp
 import d2slam_tpu_torch.frontend.loop_detector as pld
 import d2slam_tpu_torch.frontend.pnp as ppnp
+from d2slam_tpu_torch.frontend.matching import match_descriptors
 from d2slam_tpu.utils import np_lie
 from d2slam_tpu.utils.sim import default_extrinsics
 from tests.test_pnp_loop import make_pnp_scene
@@ -140,8 +146,8 @@ def _entry(mod, frame_id, pose, rays, desc, lms, drone_id=0):
         lm_positions=lms)
 
 
-def _rays(lms, pose, ext):
-    T = np_lie.pose_compose(pose, ext[0])
+def _rays(lms, pose, ext, cam=0):
+    T = np_lie.pose_compose(pose, ext[cam])
     pc = (lms - T[:3]) @ np_lie.quat_to_rotmat(T[3:])
     return pc / np.linalg.norm(pc, axis=1, keepdims=True)
 
@@ -265,3 +271,158 @@ def test_loop_detector_auto_threshold_equals_jax():
     assert nj == np_ == 30
     np.testing.assert_allclose(tp, tj, atol=1e-9)
     assert tp[-1] < 0.5 and sp == pytest.approx(sj, abs=1e-6) and sp > tp[-1]
+
+
+# ---------------------------------------------------------------------------
+# multi-view entries: matching per camera-direction pair
+# ---------------------------------------------------------------------------
+
+
+def _two_view_entry(desc, frame_id, views=None):
+    """Landmark ``i`` with descriptor ``desc[i]`` in the views ``views[i]``
+    (default: both), each landmark's records with the same descriptor, as
+    ``D2SLAMSystem._make_entry`` lists a stereo landmark."""
+    n = len(desc)
+    views = [(0, 1)] * n if views is None else views
+    rec = [(c, i) for c in (0, 1) for i in range(n) if c in views[i]]
+    cams, ids = (np.asarray(x) for x in zip(*rec))
+    return pld.KeyframeEntry(
+        frame_id=frame_id, drone_id=0, stamp=0.0, pose=np.eye(1, 7, 6)[0],
+        kpt_rays=np.tile([[0.0, 0.0, 1.0]], (len(rec), 1)), kpt_cam=cams.astype(np.int32),
+        kpt_desc=desc[ids], kpt_valid=np.ones(len(rec), bool),
+        lm_positions=np.full((len(rec), 3), np.nan), lm_ids=ids.astype(np.int64))
+
+
+def _descriptors(n, seed=11):
+    """Unit descriptors and a noisy copy of them."""
+    rng = np.random.default_rng(seed)
+    desc = rng.normal(0, 1, (n, 256)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    noisy = desc + rng.normal(0, 0.03, desc.shape).astype(np.float32)
+    return desc, noisy / np.linalg.norm(noisy, axis=1, keepdims=True)
+
+
+def _ratio_match(desc_a, desc_b, valid_a, valid_b):
+    idx, ok = match_descriptors(torch.as_tensor(desc_a), torch.as_tensor(desc_b),
+                                torch.as_tensor(valid_a), torch.as_tensor(valid_b))
+    return idx.numpy(), ok.numpy()
+
+
+def _pooled(entry, old):
+    """The matching before per-pair: every record of both entries in one
+    ratio-test call."""
+    return _ratio_match(entry.kpt_desc, old.kpt_desc, entry.kpt_valid, old.kpt_valid)
+
+
+def test_two_view_entries_match_per_direction_pair():
+    """Two-view entries in which both views see every landmark: the pooled
+    ratio test meets each landmark's own copy and keeps no match; per
+    camera-direction pair every landmark matches, one match per landmark
+    (its first view's) is kept, and a landmark whose views match
+    different candidate landmarks loses its matches."""
+    n = 40
+    desc, noisy = _descriptors(n)
+    query, old = _two_view_entry(noisy, 10), _two_view_entry(desc, 0)
+    det = pld.LoopDetector(pld.LoopDetectorConfig(), default_extrinsics(), device="cpu")
+    assert not _pooled(query, old)[1].any()
+    midx, mok = det._match_views(query, old)
+    np.testing.assert_array_equal(mok, query.kpt_cam == 0)
+    np.testing.assert_array_equal(old.lm_ids[midx[mok]], query.lm_ids[mok])
+    np.testing.assert_array_equal(old.kpt_cam[midx[mok]], 0)
+    # the candidate's camera-1 records of landmarks 0 and 1 carry each
+    # other's ids: both views of each still match, but to different
+    # candidate landmarks, so those two lose their matches
+    ids = old.lm_ids.copy()
+    cam1 = np.flatnonzero(old.kpt_cam == 1)
+    ids[cam1[[0, 1]]] = ids[cam1[[1, 0]]]
+    _, mok_x = det._match_views(query, old._replace(lm_ids=ids))
+    np.testing.assert_array_equal(mok_x, (query.kpt_cam == 0) & ~np.isin(query.lm_ids, [0, 1]))
+    # a learned matcher sees one view of each entry per call
+    seen = []
+
+    def matcher(da, ra, va, db, rb, vb):
+        seen.append((len(da), len(db)))
+        return _ratio_match(da, db, va, vb)
+
+    det.matcher_fn = matcher
+    midx_sg, mok_sg = det._match_views(query, old)
+    assert seen == [(n, n)] * 4
+    np.testing.assert_array_equal(midx_sg, midx)
+    np.testing.assert_array_equal(mok_sg, mok)
+
+
+def test_multi_view_entries_need_landmark_ids():
+    """A multi-view pair is matched landmark by landmark, so an entry of
+    it without one landmark id per record is refused."""
+    desc, noisy = _descriptors(8)
+    query, old = _two_view_entry(noisy, 10), _two_view_entry(desc, 0)
+    det = pld.LoopDetector(pld.LoopDetectorConfig(), default_extrinsics(), device="cpu")
+    for a, b in ((query._replace(lm_ids=np.zeros(0, np.int64)), old),
+                 (query, old._replace(lm_ids=old.lm_ids[:-1]))):
+        with pytest.raises(ValueError, match="one landmark id per record"):
+            det._match_views(a, b)
+
+
+@pytest.mark.parametrize("swap", [False, True], ids=["same_order", "views_swapped"])
+def test_view_offset_follows_the_candidates_views(swap):
+    """Views that see different landmarks: query view c matches the
+    candidate's view (c + k) mod 2 at the offset k with the most matches,
+    0, or 1 where the candidate's views are swapped."""
+    n = 40
+    desc, noisy = _descriptors(n, seed=12)
+    views = [(i % 2,) for i in range(n)]
+    query = _two_view_entry(noisy, 10, views)
+    old = _two_view_entry(desc, 0, [((v + swap) % 2,) for (v,) in views])
+    det = pld.LoopDetector(pld.LoopDetectorConfig(), default_extrinsics(), device="cpu")
+    midx, mok = det._match_views(query, old)
+    assert mok.all()
+    np.testing.assert_array_equal(old.lm_ids[midx], query.lm_ids)
+    np.testing.assert_array_equal(old.kpt_cam[midx], (query.kpt_cam + swap) % 2)
+
+
+def test_single_view_entries_match_as_one_call():
+    """A single-view pair is today's one call: the same matches as the
+    ratio test over all records, and one learned-matcher call with every
+    record."""
+    sc = _loop_scene(planar=True)
+    n = len(sc["lms"])
+    query = _entry(pld, 10, sc["pose_vio"], sc["rays_new"], sc["desc_new"], np.full((n, 3), np.nan))
+    old = _entry(pld, 0, sc["pose_old"], sc["rays_old"], sc["desc"], sc["lms"])
+    det = pld.LoopDetector(pld.LoopDetectorConfig(), sc["ext"], device="cpu")
+    midx, mok = det._match_views(query, old)
+    pidx, pok = _pooled(query, old)
+    np.testing.assert_array_equal(mok, pok)
+    np.testing.assert_array_equal(midx[mok], pidx[pok])
+    assert mok.sum() >= 50
+    calls = []
+    det.matcher_fn = lambda *a: calls.append([len(x) for x in a]) or (np.zeros(n, int),
+                                                                       np.zeros(n, bool))
+    det._match_views(query, old)
+    assert calls == [[n] * 6]
+
+
+def test_two_view_loop_counts_landmarks_not_records():
+    """_loop_scene seen by both cameras of the stereo rig in both
+    keyframes: the loop verifies, and its inliers (and so its covariance)
+    count each landmark once, not once per view."""
+    sc = _loop_scene(planar=False)
+    n, ext = len(sc["lms"]), sc["ext"]
+
+    def both_views(pose, desc, lms, frame_id):
+        rays = [_rays(sc["lms"], pose, ext, c) for c in range(2)]
+        return pld.KeyframeEntry(
+            frame_id=frame_id, drone_id=0, stamp=0.0, pose=pose,
+            kpt_rays=np.concatenate(rays), kpt_cam=np.repeat(np.arange(2, dtype=np.int32), n),
+            kpt_desc=np.concatenate([desc, desc]), kpt_valid=np.ones(2 * n, bool),
+            lm_positions=np.concatenate([lms, lms]), lm_ids=np.tile(np.arange(n), 2))
+
+    det = pld.LoopDetector(pld.LoopDetectorConfig(min_gap_frames=2, min_inliers=20,
+                                                  min_match_per_dir=10), ext, device="cpu")
+    det.add_keyframe(both_views(sc["pose_old"], sc["desc"], sc["lms"], 0), sc["gdesc"])
+    pose_new = sc["pose_vio"].copy()
+    pose_new[:3] -= [0.3, -0.2, 0.1]
+    query = both_views(pose_new, sc["desc_new"], np.full((n, 3), np.nan), 10)
+    query = query._replace(pose=sc["pose_vio"])
+    edge = det.detect(query, sc["gdesc_new"])
+    assert edge is not None and 50 <= edge.inliers <= n
+    np.testing.assert_allclose(edge.rel_pose[:3], pose_new[:3] - sc["pose_old"][:3], atol=0.05)

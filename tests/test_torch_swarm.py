@@ -157,6 +157,43 @@ def test_swarm_same_packets_and_cross_decode(swarm_runs):
     assert n_kf >= 2 * 12
 
 
+def test_stereo_keyframe_packet_records_equal_jax(swarm_runs):
+    """A keyframe packet that the system builds from a stereo frame's own
+    entry (each landmark once per view that sees it): the same records as
+    the JAX package's, and the same codec bytes once the fields read from
+    the estimator (landmark positions within ``TRAJ_TOL``, biases,
+    velocity) are taken from the JAX packet."""
+    from d2slam_tpu.comm import codec as jc
+    from d2slam_tpu_torch.comm import codec as pc
+
+    (sj, sims_j, _, _), (sp, _, _, _) = swarm_runs
+    a, b = sj[0], sp[0]
+    ff = sims_j[0].frame(N_FRAMES - 1)
+    assert len(ff.observations) == 2
+    ids = np.unique(np.concatenate([o.landmark_ids for o in ff.observations]))
+    shared = np.intersect1d(ff.observations[0].landmark_ids, ff.observations[1].landmark_ids)
+    assert len(shared) >= 10
+    desc = TS.DESC_TABLE[ids].astype(np.float32)
+    pose = np.asarray(a.odometry.pose, np.float64)
+    gdesc = TS.bag_gdesc(ids)
+    pkts = []
+    for s, d in ((a, desc), (b, torch.as_tensor(desc))):
+        saved = s.tracker.last_kf, s._last_bcast_t
+        s.tracker.last_kf = dict(ids=ids, desc=d, valid=np.ones(len(ids), bool))
+        try:
+            pkts.append(s._make_packet(ff, pose, gdesc, None))
+        finally:
+            s.tracker.last_kf, s._last_bcast_t = saved
+    kj, kp = pkts
+    n_obs = sum(len(o.landmark_ids) for o in ff.observations)
+    assert len(kp.lm_ids) == len(kj.lm_ids) == n_obs
+    for f in ("lm_ids", "lm_cam", "lm_rays", "lm_vels", "lm_desc", "gdesc", "sld_win"):
+        np.testing.assert_array_equal(getattr(kp, f), getattr(kj, f), err_msg=f)
+    np.testing.assert_allclose(kp.lm_pos3d, kj.lm_pos3d, atol=TRAJ_TOL)
+    est = dict(lm_pos3d=kj.lm_pos3d, ba=kj.ba, bg=kj.bg, vel=kj.vel)
+    assert pc.encode_keyframe(kp._replace(**est)) == jc.encode_keyframe(kj)
+
+
 def test_swarm_same_loops_and_alignment(swarm_runs):
     (sj, _, _, _), (sp, _, _, _) = swarm_runs
     for a, b in zip(sj, sp):
@@ -409,3 +446,115 @@ def test_pipelined_system_refuses_a_transport():
     system = make_system(True, 0, CircleSim(n_landmarks=20, seed=3), LocalBus().endpoint(0))
     with pytest.raises(NotImplementedError, match="transport"):
         PipelinedSystem(system)
+
+
+def _unify_inputs(n_views: int):
+    """tests/test_swarm.py::test_swarm_alignment_and_unification's scene
+    (the same seed and draws): robot A's keyframe with its landmarks known
+    and robot B's keyframe of the same landmarks, B's world offset from
+    A's by a yaw and a translation; each landmark in the first
+    ``n_views`` cameras of the stereo rig, listed once per view with the
+    same descriptor, as both packages' keyframe entries list it."""
+    from d2slam_tpu_torch.utils import np_lie
+    from d2slam_tpu_torch.utils.sim import default_extrinsics
+
+    rng = np.random.default_rng(0)
+    ext, n = default_extrinsics(), 80
+    lms = np.concatenate([rng.uniform(6, 14, (n, 1)), rng.uniform(-5, 5, (n, 1)),
+                          rng.uniform(0, 4, (n, 1))], axis=1)
+    descs = rng.normal(0, 1, (n, 64)).astype(np.float32)
+    descs /= np.linalg.norm(descs, axis=1, keepdims=True)
+    gdesc = rng.normal(0, 1, 1024).astype(np.float32)
+    gdesc /= np.linalg.norm(gdesc)
+    yaw = 0.6
+    A_T_B = np.array([3.0, -1.0, 0.5, 0, 0, np.sin(yaw / 2), np.cos(yaw / 2)])
+    pose_A = np.array([0.0, 0, 0, 0, 0, 0, 1])
+    pose_B_inA = np.array([0.8, 0.4, 0.1, 0, 0, np.sin(0.05), np.cos(0.05)])
+    pose_B = np_lie.pose_compose(np_lie.pose_inverse(A_T_B), pose_B_inA)
+    descs_B = descs + rng.normal(0, 0.03, descs.shape).astype(np.float32)
+    descs_B /= np.linalg.norm(descs_B, axis=1, keepdims=True)
+    gdesc_B = gdesc + rng.normal(0, 0.005, 1024).astype(np.float32)
+    gdesc_B /= np.linalg.norm(gdesc_B)
+
+    def rays(pose):
+        out = []
+        for c in range(n_views):
+            T = np_lie.pose_compose(pose, ext[c])
+            pc = (lms - T[:3]) @ np_lie.quat_to_rotmat(T[3:])
+            out.append(pc / np.linalg.norm(pc, axis=1, keepdims=True))
+        return np.concatenate(out)
+
+    return dict(ext=ext, n=n, lms=np.tile(lms, (n_views, 1)), desc=np.tile(descs, (n_views, 1)),
+                desc_B=np.tile(descs_B, (n_views, 1)), gdesc=gdesc, gdesc_B=gdesc_B,
+                cam=np.repeat(np.arange(n_views), n), ids=np.tile(np.arange(n), n_views),
+                pose_A=pose_A, pose_B=pose_B, pose_B_inA=pose_B_inA, A_T_B=A_T_B,
+                rays_A=rays(pose_A), rays_B=rays(pose_B_inA).astype(np.float32))
+
+
+def _unify_run(port: bool, sc):
+    """Robot A's swarm manager takes its own keyframe, then B's through
+    the wire codec; returns the manager, the decoded packet and the edge."""
+    if port:
+        from d2slam_tpu_torch.comm.codec import RemoteKeyframePacket, decode_keyframe, encode_keyframe
+        from d2slam_tpu_torch.frontend.loop_detector import (KeyframeEntry, LoopDetector,
+                                                             LoopDetectorConfig)
+        from d2slam_tpu_torch.vins.swarm import SwarmConfig, SwarmManager
+    else:
+        from d2slam_tpu.comm.codec import RemoteKeyframePacket, decode_keyframe, encode_keyframe
+        from d2slam_tpu.frontend.loop_detector import KeyframeEntry, LoopDetector, LoopDetectorConfig
+        from d2slam_tpu.vins.swarm import SwarmConfig, SwarmManager
+
+    det = LoopDetector(LoopDetectorConfig(min_gap_frames=2, min_inliers=20, min_match_per_dir=10,
+                                          gdesc_dim=1024),
+                       sc["ext"], **(dict(device="cpu") if port else {}))
+    mgr = SwarmManager(0, det, SwarmConfig())
+    k = len(sc["ids"])
+    mgr.add_local_keyframe(
+        KeyframeEntry(frame_id=0, drone_id=0, stamp=0.0, pose=sc["pose_A"],
+                      kpt_rays=sc["rays_A"], kpt_cam=sc["cam"].astype(np.int32),
+                      kpt_desc=sc["desc"], kpt_valid=np.ones(k, bool), lm_positions=sc["lms"],
+                      lm_ids=sc["ids"].astype(np.int64)),
+        sc["gdesc"], stamp=0.0)
+    pkt = decode_keyframe(encode_keyframe(RemoteKeyframePacket(
+        drone_id=1, frame_id=100, stamp=5.0, is_keyframe=True,
+        pose=sc["pose_B"].astype(np.float32), gdesc=sc["gdesc_B"],
+        lm_ids=1000 + sc["ids"], lm_cam=sc["cam"].astype(np.uint8), lm_rays=sc["rays_B"],
+        lm_vels=np.zeros((k, 3), np.float32), lm_desc=sc["desc_B"])))
+    return mgr, pkt, mgr.on_remote_keyframe(pkt)
+
+
+@pytest.mark.parametrize("n_views", [1, 2], ids=["mono", "stereo"])
+def test_remote_keyframe_unifies_landmarks(n_views):
+    """An inter-robot loop from a remote keyframe unifies B's landmark ids
+    with A's, the earlier discovery (A's) owning them. Mono: the same
+    loop, alignment and unified ids as the JAX package. Stereo (every
+    landmark in both views): one pooled ratio test of the packet against
+    A's entry, as the unification ran before it matched per
+    camera-direction pair, meets each landmark's own copy and finds no
+    match; the port still verifies the loop, recovers the alignment
+    within the JAX test's 0.1 m, and unifies each of B's landmarks with
+    its own counterpart in A."""
+    from d2slam_tpu_torch.frontend.matching import match_descriptors
+    from d2slam_tpu_torch.utils import np_lie
+
+    sc = _unify_inputs(n_views)
+    mgr, pkt, edge = _unify_run(True, sc)
+    assert edge is not None and (edge.drone_id_a, edge.drone_id_b) == (0, 1)
+    T = mgr.alignments[1].transform
+    np.testing.assert_allclose(T[:3], sc["A_T_B"][:3], atol=0.1)
+    assert abs(np_lie.quat_mul(np_lie.quat_conj(T[3:]), sc["A_T_B"][3:])[3]) > 0.999
+    unified = {k: v for k, v in mgr.lm_unify.items() if k[0] == 1}
+    assert len(unified) >= 10
+    assert all(v == (0, k[1] - 1000) for k, v in unified.items())
+    if n_views == 1:
+        mgr_j, _, edge_j = _unify_run(False, sc)
+        assert (edge.frame_id_a, edge.frame_id_b, edge.inliers) == (
+            edge_j.frame_id_a, edge_j.frame_id_b, edge_j.inliers)
+        np.testing.assert_allclose(T, mgr_j.alignments[1].transform, atol=1e-6)
+        assert mgr.lm_unify == mgr_j.lm_unify
+    else:
+        old = mgr.detector.entries[0]
+        _, ok = match_descriptors(torch.as_tensor(pkt.lm_desc), torch.as_tensor(old.kpt_desc),
+                                  torch.ones(len(pkt.lm_ids), dtype=torch.bool),
+                                  torch.as_tensor(old.kpt_valid))
+        assert not ok.any()

@@ -182,9 +182,17 @@ def test_image_level_netvlad_fused():
     entries = system.detector.entries
     assert len(entries) >= 5 and system.pgo_solve_count >= 1
     nv_j = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float32), load_weights(NV_WEIGHTS))
+    assert any(len(np.unique(e.lm_ids)) < len(e.lm_ids) for e in entries)
     for slot, e in enumerate(entries):
-        # one keypoint per landmark: a stereo entry lists no descriptor twice
-        assert len(np.unique(e.lm_ids)) == len(e.lm_ids) == len(e.kpt_desc)
+        # one record per landmark and view: a view lists no landmark twice
+        # (a landmark both views see enters once from each, with the
+        # descriptor of its first view; the loop matcher matches view
+        # against view)
+        assert len(np.unique(np.stack([e.lm_ids, e.kpt_cam], 1), axis=0)) == len(e.lm_ids) \
+            == len(e.kpt_desc)
+        for lid in np.unique(e.lm_ids):
+            d = e.kpt_desc[e.lm_ids == lid]
+            assert (d == d[0]).all()
         u8 = _img_u8(lefts[e.frame_id])
         ref = np.asarray(netvlad_apply(nv_j, jnp.asarray(u8, jnp.float32)[None, ..., None] / 255.0,
                                        netvlad_cfg_from_params(nv_j)))[0]

@@ -762,9 +762,9 @@ def run_sequence(params, dev, H, W, fx, n_frames, cfg, sp_cfg, tr_cfg, n_landmar
         finite=bool(poses) and bool(np.all(np.isfinite(np.asarray(poses)))),
         stem_launches=launches,
         extract_ms_per_frame=rep["extract"]["mean_ms"],
-        extract_ms_median=rep["extract"]["p50_ms"],
+        extract_ms_max=rep["extract"]["max_ms"],
         tracker_host_ms_per_frame=rep["host"]["mean_ms"],
-        tracker_host_ms_median=rep["host"]["p50_ms"],
+        tracker_host_ms_max=rep["host"]["max_ms"],
         estimator_ms_per_keyframe=float(np.mean(est_ms)) if est_ms else 0.0,
         estimator_ms_median=float(np.median(est_ms)) if est_ms else 0.0,
         estimator_ms_per_frame=float(np.sum(est_ms)) / n_frames,
@@ -1017,7 +1017,7 @@ def run_system(params, dev, H, W, fx, n_frames, n_landmarks=300, sim=None, rende
         loops_verified=len(system.loop_edges), loops_kept_by_pcm=system.loops_kept,
         loop_pairs=[[e.frame_id_a, e.frame_id_b, e.inliers] for e in system.loop_edges],
         pgo_solves=system.pgo_solve_count,
-        pgo_ms_per_solve=perf.get("pgo_solve", {}).get("mean_ms", float("nan")),
+        pgo_ms_per_solve=system.pgo_perf.report().get("solve", {}).get("mean_ms", float("nan")),
         pgo_report=system.last_pgo_report._asdict() if system.last_pgo_report else None,
         loop_verification_ms_per_query=perf.get("loop_detect", {}).get("mean_ms", float("nan")),
         netvlad_ms_per_frame=(time_ms(lambda: nv(u8.float() / 255.0), iters=20)
@@ -1164,10 +1164,10 @@ def frame_times(system, wall, n_frames):
         submit_ms_per_frame=tr.get("submit", {}).get("mean_ms"),
         extract_ms_per_frame=tr["extract"]["mean_ms"],
         tracker_host_ms_per_frame=tr["host"]["mean_ms"],
-        estimator_ms_per_keyframe=sum(v["mean_ms"] for v in est.values()),
+        estimator_ms_per_keyframe=est.get("input_frame", {}).get("mean_ms"),
         estimator_stages={k: v["mean_ms"] for k, v in est.items()},
         loop_detect_ms_per_query=sp.get("loop_detect", {}).get("mean_ms"),
-        pgo_ms_per_solve=sp.get("pgo_solve", {}).get("mean_ms"),
+        pgo_ms_per_solve=system.pgo_perf.report().get("solve", {}).get("mean_ms"),
         pgo_solves=system.pgo_solve_count)
 
 
@@ -1700,7 +1700,7 @@ def run_option(params, dev, option, H=480, W=640, fx=440.0, n_frames=OPTION_FRAM
                ate_m=pose_ate(poses, gts) if poses else float("nan"),
                finite=bool(poses) and bool(np.isfinite(np.asarray(poses)).all()),
                stem_launches=stem.launches, ms_per_frame=wall * 1e3 / n_frames,
-               estimator_ms_per_keyframe=sum(v["mean_ms"] for v in est.perf.report().values()),
+               estimator_ms_per_keyframe=est.perf.report().get("input_frame", {}).get("mean_ms"),
                estimator_stages={k: v["mean_ms"] for k, v in est.perf.report().items()})
     if option == "default":
         res.update(checkpoint=checkpoint_roundtrip(system, stamps[-1] + 0.05))

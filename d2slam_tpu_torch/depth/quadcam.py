@@ -22,7 +22,7 @@ import torch
 
 from d2slam_tpu_torch.depth.fisheye_undist import build_undistort_map, remap_bilinear
 from d2slam_tpu_torch.depth.stereo import disparity, points_from_disparity
-from d2slam_tpu_torch.utils import np_lie
+from d2slam_tpu_torch.utils import np_lie, perf
 from d2slam_tpu_torch.utils.device import resolve_device
 
 
@@ -130,40 +130,44 @@ def quadcam_depth(images, pairs: List[VirtualStereoPair],
     dev = resolve_device(device)
     H, W = cfg.out_hw
     P = len(pairs)
-    imgs = _stack(images, dev)
-    if photometric is not None:
-        imgs = imgs * _stack(photometric, dev)
-    li = [p.cam_left for p in pairs]
-    ri = [p.cam_right for p in pairs]
-    src = [imgs[li], imgs[ri]]
-    maps_l = torch.stack([p.map_left for p in pairs])
-    maps = [maps_l, torch.stack([p.map_right for p in pairs])]
-    if color_images is not None:
-        col = _stack(color_images, dev)
-        gray = col.dim() == 3
-        col = (col[..., None] if gray else col)[li]          # [P, Hf, Wf, C]
-        n_ch = col.shape[-1]
-        src += [col[..., c] for c in range(n_ch)]
-        maps += [maps_l] * n_ch
-    # one remap for every left, right and texture view of the frame
-    views = remap_bilinear(torch.cat(src), torch.cat(maps))
-    left, right = views[:P].contiguous(), views[P:2 * P].contiguous()
+    with perf.span("depth.upload"):
+        imgs = _stack(images, dev)
+        if photometric is not None:
+            imgs = imgs * _stack(photometric, dev)
+        col = None if color_images is None else _stack(color_images, dev)
+    with perf.span("depth.remap"):
+        li = [p.cam_left for p in pairs]
+        ri = [p.cam_right for p in pairs]
+        src = [imgs[li], imgs[ri]]
+        maps_l = torch.stack([p.map_left for p in pairs])
+        maps = [maps_l, torch.stack([p.map_right for p in pairs])]
+        if col is not None:
+            gray = col.dim() == 3
+            col = (col[..., None] if gray else col)[li]          # [P, Hf, Wf, C]
+            n_ch = col.shape[-1]
+            src += [col[..., c] for c in range(n_ch)]
+            maps += [maps_l] * n_ch
+        # one remap for every left, right and texture view of the frame
+        views = remap_bilinear(torch.cat(src), torch.cat(maps))
+        left, right = views[:P].contiguous(), views[P:2 * P].contiguous()
 
-    if hitnet is not None:
-        apply, params = hitnet
-        disp = apply(params, left, right)
-        valid = disp > 0.5
-    else:
-        disp, valid = disparity(left, right, max_disp=cfg.max_disp,
-                                block=cfg.block, backend=backend)
+    with perf.span("depth.disparity"):
+        if hitnet is not None:
+            apply, params = hitnet
+            disp = apply(params, left, right)
+            valid = disp > 0.5
+        else:
+            disp, valid = disparity(left, right, max_disp=cfg.max_disp,
+                                    block=cfg.block, backend=backend)
 
     def per_pair(vals):
         return torch.tensor(vals, dtype=disp.dtype, device=dev)[:, None, None]
 
-    pts, ok = points_from_disparity(
-        disp, valid, fx=per_pair([p.focal for p in pairs]),
-        baseline=per_pair([p.baseline for p in pairs]),
-        cx=W / 2.0, cy=H / 2.0, min_z=cfg.min_z, max_z=cfg.max_z)
+    with perf.span("depth.points"):
+        pts, ok = points_from_disparity(
+            disp, valid, fx=per_pair([p.focal for p in pairs]),
+            baseline=per_pair([p.baseline for p in pairs]),
+            cx=W / 2.0, cy=H / 2.0, min_z=cfg.min_z, max_z=cfg.max_z)
     if color_images is None:
         return [(pts[k], ok[k]) for k in range(P)]
     tex = views[2 * P:].reshape(n_ch, P, H, W).permute(1, 2, 3, 0)

@@ -226,7 +226,7 @@ class FeatureTracker:
         self.cfg = cfg
         self.dt = 1.0 / frame_rate
         self.ext = None if extrinsics is None else np.asarray(extrinsics, np.float64)
-        self.perf = PerfTracker()
+        self.perf = PerfTracker("frontend")
         self._lm_ids = itertools.count(0)
         self.prev: Dict = {}          # last processed frame data
         self.last_kf: Dict = {}       # last keyframe data
@@ -373,14 +373,14 @@ class FeatureTracker:
         these images; its aux output becomes ``last_aux``."""
         imgL = _img_f32(img_left)
         imgR = _img_f32(img_right)
-        with self.perf.stage("extract"):
+        with self.perf.stage("extract", frame_id):
             if extracted is not None:
                 res = extracted()
                 self.last_aux = res.aux
                 outs, kpts, valid = res.out, res.kpts, res.valid
             else:
                 outs, kpts, valid = self.extract(np.stack([imgL, imgR]))
-        with self.perf.stage("host"):
+        with self.perf.stage("host", frame_id):
             return self._associate(stamp, frame_id, imgL, outs, kpts, valid)
 
     def _associate(self, stamp, frame_id, imgL, outs, kpts, valid):
@@ -528,7 +528,7 @@ class FeatureTracker:
         d2featuretracker.cpp:658-753); matched features across views are
         union-found into ONE landmark id."""
         imgs = [_img_f32(im) for im in imgs]
-        with self.perf.stage("extract"):
+        with self.perf.stage("extract", frame_id):
             if len({im.shape for im in imgs}) == 1:
                 outs, kpts, valid = self.extract(np.stack(imgs))
                 per_view = [(kpts[v], outs.desc[v], valid[v]) for v in range(len(imgs))]
@@ -537,7 +537,7 @@ class FeatureTracker:
                 for im in imgs:
                     outs, kpts, valid = self.extract(im[None], aux=False)
                     per_view.append((kpts[0], outs.desc[0], valid[0]))
-        with self.perf.stage("host"):
+        with self.perf.stage("host", frame_id):
             return self._associate_multiview(stamp, frame_id, imgs, per_view, adjacency,
                                              depth_imgs)
 

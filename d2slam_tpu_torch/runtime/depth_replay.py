@@ -26,7 +26,7 @@ from typing import Callable, Iterable, List, Optional
 import torch
 
 from d2slam_tpu_torch.depth.quadcam import QuadcamConfig, VirtualStereoPair, quadcam_depth
-from d2slam_tpu_torch.runtime.pipeline import StageStats
+from d2slam_tpu_torch.utils import perf
 from d2slam_tpu_torch.utils.device import resolve_device
 
 _END = ("end",)
@@ -36,7 +36,8 @@ _POLL_S = 0.05       # how often a blocked stage looks for the run's end
 
 def _host_clouds(out) -> list:
     """Host copies of each pair's (points, valid[, texture])."""
-    return [tuple(x.cpu().numpy() for x in pair) for pair in out]
+    with perf.span("depth.download"):
+        return [tuple(x.cpu().numpy() for x in pair) for pair in out]
 
 
 def _check_host(obj) -> None:
@@ -82,8 +83,14 @@ class DepthReplay:
 
     pairs / cfg / hitnet: as ``quadcam_depth`` (the pairs' maps on
     ``device``).
-    ``stats`` holds the host-clock time of each stage per frame ("raw",
-    "inference", "publish") after a run."""
+    ``stats`` holds the host-clock time of each stage per frame ("raw":
+    the producer's put, "inference", "publish") after a run: the totals
+    of the stages ``replay.produce``, ``replay.infer`` and
+    ``replay.publish``, whose spans are keyed by the frame's index in
+    the run. The recorder (``utils.perf``) also gets each frame's wait
+    in the queues, from the put's return to the take
+    ("replay.queued_raw") and from the worker's put to the take
+    ("replay.queued_out", a wait on a full queue included)."""
 
     def __init__(self, pairs: List[VirtualStereoPair], cfg: QuadcamConfig = QuadcamConfig(),
                  *, hitnet=None, device=None):
@@ -105,7 +112,9 @@ class DepthReplay:
         that error on the caller's thread."""
         q_raw: queue.Queue = queue.Queue(QUEUE_CAPACITY)
         q_out: queue.Queue = queue.Queue(QUEUE_CAPACITY)
-        self.stats = {n: StageStats() for n in ("raw", "inference", "publish")}
+        tracker = perf.PerfTracker("replay")
+        self.stats = {old: tracker.totals(new) for old, new in
+                      (("raw", "produce"), ("inference", "infer"), ("publish", "publish"))}
         errors: List[BaseException] = []
         stop = threading.Event()
 
@@ -122,9 +131,10 @@ class DepthReplay:
 
         def produce():
             for k, (imgs, colors) in enumerate(frames):
-                t0 = time.perf_counter()
-                _put(q_raw, (k, imgs, colors), stop, timeout_s)
-                self.stats["raw"].add(time.perf_counter() - t0)
+                put_at = [None]    # when the put returned, for the queue's wait
+                with tracker.stage("produce", k):
+                    _put(q_raw, (k, imgs, colors, put_at), stop, timeout_s)
+                put_at[0] = time.perf_counter()
 
         def infer():
             stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
@@ -132,15 +142,16 @@ class DepthReplay:
                 item = _get(q_raw, stop, timeout_s)
                 if item == _END:
                     return
-                k, imgs, colors = item
-                t0 = time.perf_counter()
-                if stream is None:
-                    clouds = self._infer(imgs, colors)
-                else:
-                    with torch.cuda.stream(stream):
+                k, imgs, colors, put_at = item
+                t = time.perf_counter()
+                perf.interval("replay.queued_raw", put_at[0] or t, t, k)
+                with tracker.stage("infer", k):
+                    if stream is None:
                         clouds = self._infer(imgs, colors)
-                self.stats["inference"].add(time.perf_counter() - t0)
-                _put(q_out, (k, clouds), stop, timeout_s)
+                    else:
+                        with torch.cuda.stream(stream):
+                            clouds = self._infer(imgs, colors)
+                _put(q_out, (k, clouds, time.perf_counter()), stop, timeout_s)
 
         threads = [threading.Thread(target=stage, args=a, daemon=True)
                    for a in ((produce, q_raw), (infer, q_out))]
@@ -152,12 +163,12 @@ class DepthReplay:
                 item = _get(q_out, stop, timeout_s)
                 if item == _END:
                     break
-                t0 = time.perf_counter()
-                k, clouds = item
-                if publish is not None:
-                    publish(k, clouds)
-                results.append(clouds)
-                self.stats["publish"].add(time.perf_counter() - t0)
+                k, clouds, t_put = item
+                with tracker.stage("publish", k) as s:
+                    perf.interval("replay.queued_out", t_put, s.t0, k)
+                    if publish is not None:
+                        publish(k, clouds)
+                    results.append(clouds)
         finally:
             stop.set()
             for t in threads:

@@ -249,7 +249,8 @@ class D2SLAMSystem:
         # (reference D2State reference_frame_id and moveAllPoses,
         # d2estimator.cpp:274-281)
         self.ref_frame_id = 0 if sys_cfg.assume_common_world else self.drone_id
-        self.perf = PerfTracker()
+        self.perf = PerfTracker("system")
+        self.pgo_perf = PerfTracker("pgo")
 
         if sp_cfg is None:
             sp_cfg = superpoint.SuperPointConfig(max_keypoints=200, threshold=1e-4)
@@ -568,7 +569,7 @@ class D2SLAMSystem:
                     ids = [int(i) for i in obs0.landmark_ids] if obs0 is not None else []
                 entry = entry._replace(pose=pose, lm_positions=self._lm_positions_of(ff, ids))
             if entry is not None:
-                with self.perf.stage("loop_detect"):
+                with self.perf.stage("loop_detect", ff.frame_id):
                     edge = self.detector.detect(entry, gdesc)
                 self.swarm.add_local_keyframe(entry, gdesc, ff.stamp)
                 if edge is not None:
@@ -920,7 +921,7 @@ class D2SLAMSystem:
         ``_pgo_solve_lock``; the input snapshot is taken under
         ``_pgo_lock`` and the write-back is dropped if ``_pgo_epoch``
         moved while the solve ran."""
-        with self._pgo_solve_lock, self.perf.stage("pgo_solve"):
+        with self._pgo_solve_lock, self.pgo_perf.stage("solve", self.pgo_solve_count):
             return self._solve_pgo_impl()
 
     def _solve_pgo_distributed(self) -> np.ndarray:
@@ -930,7 +931,7 @@ class D2SLAMSystem:
         (receive, anchored local solve, dual update, broadcast) and the
         optimized poses come back into the pose table."""
         dp = self.dpgo
-        with self._pgo_lock:
+        with self._pgo_lock, self.pgo_perf.stage("snapshot"):
             epoch0 = self._pgo_epoch
             n = len(self._pgo_meta)
             for slot, (d, fid, _, _) in enumerate(self._pgo_meta):
@@ -955,9 +956,10 @@ class D2SLAMSystem:
             now = self._pgo_meta[-1][2]
         dp.updated = True   # a timer-driven round (the reference's solver cadence)
         stream = self._pgo_stream
-        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+        with self.pgo_perf.stage("optimize"), \
+                torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
             dp.solve(stamp=now)
-        with self._pgo_lock:
+        with self._pgo_lock, self.pgo_perf.stage("writeback"):
             if self._pgo_epoch == epoch0:
                 for slot in range(n):
                     p = dp.optimized_pose(keys[slot])
@@ -977,7 +979,7 @@ class D2SLAMSystem:
                 return None
         if self.dpgo is not None:
             return self._solve_pgo_distributed()
-        with self._pgo_lock:
+        with self._pgo_lock, self.pgo_perf.stage("snapshot"):
             n = len(self._pgo_meta)
             epoch0 = self._pgo_epoch
             # grow edge capacity ahead of assembly so no edge is dropped
@@ -1023,25 +1025,28 @@ class D2SLAMSystem:
         edges = PGOEdges(i=ei, j=ej, rel=rel.astype(np.float32),
                          sqrt_info=si.astype(np.float32), valid=valid)
         stream = self._pgo_stream
-        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-            if use_pcg:
-                out, rep = solve_pgo_pcg(layout, state, edges, fixed, max_iters=self.sys.pgo_iters,
-                                         cg_iters=self.sys.pgo_cg_iters, device=self.device)
-            else:
-                out, rep = solve_pgo(layout, state, edges, fixed, max_iters=self.sys.pgo_iters,
-                                     device=self.device)
-        if stream is not None:
-            stream.synchronize()   # the result is complete before it is read back
-        opt = out.poses.cpu().numpy().astype(np.float64)
-        opt[:, 3:] /= np.linalg.norm(opt[:, 3:], axis=1, keepdims=True)
-        with self._pgo_lock:
-            if self._pgo_epoch == epoch0:
-                self._pgo_poses[:n] = opt[:n]
-            else:
-                opt = self._pgo_poses[:n].copy()
-            self.pgo_solve_count += 1
-            self.last_pgo_report = PGOReport(float(rep.initial_cost), float(rep.final_cost),
-                                             int(rep.accepted))
+        with self.pgo_perf.stage("optimize"):
+            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+                if use_pcg:
+                    out, rep = solve_pgo_pcg(layout, state, edges, fixed,
+                                             max_iters=self.sys.pgo_iters,
+                                             cg_iters=self.sys.pgo_cg_iters, device=self.device)
+                else:
+                    out, rep = solve_pgo(layout, state, edges, fixed,
+                                         max_iters=self.sys.pgo_iters, device=self.device)
+            if stream is not None:
+                stream.synchronize()   # the result is complete before it is read back
+        with self.pgo_perf.stage("writeback"):
+            opt = out.poses.cpu().numpy().astype(np.float64)
+            opt[:, 3:] /= np.linalg.norm(opt[:, 3:], axis=1, keepdims=True)
+            with self._pgo_lock:
+                if self._pgo_epoch == epoch0:
+                    self._pgo_poses[:n] = opt[:n]
+                else:
+                    opt = self._pgo_poses[:n].copy()
+                self.pgo_solve_count += 1
+                self.last_pgo_report = PGOReport(float(rep.initial_cost), float(rep.final_cost),
+                                                 int(rep.accepted))
         return opt[:n]
 
     def _usable_loops(self) -> List[Tuple[int, int, LoopEdge]]:

@@ -43,18 +43,26 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from d2slam_tpu_torch.utils import perf
+
 
 class _Item:
     """One unit of backend work: IMU samples, then (optionally) a
-    keyframe with what its registration needs."""
+    keyframe with what its registration needs; ``t_put``: when it was
+    queued (``time.perf_counter()``)."""
 
-    __slots__ = ("imu", "ff", "imgs", "inputs")
+    __slots__ = ("imu", "ff", "imgs", "inputs", "t_put")
 
     def __init__(self, imu: List, ff=None, imgs=None, inputs=None):
         self.imu = imu
         self.ff = ff
         self.imgs = imgs
         self.inputs = inputs or {}
+        self.t_put = 0.0
+
+    @property
+    def key(self):
+        return None if self.ff is None else self.ff.frame_id
 
 
 class PipelinedSystem:
@@ -111,16 +119,20 @@ class PipelinedSystem:
         previous frame is associated while it runs (one frame of extra
         latency, the same order and keyframe decisions as a serial run)."""
         self._check()
-        submit = getattr(self.sys.tracker, "submit_stereo_extraction", None)
-        resolver = submit(img_left, img_right) if submit else None
-        if resolver is None:
-            self._flush_pending()   # keep frame order
-            self._frontend(t, img_left, img_right, None, self._imu_fed)
-            return
-        prev, self._pending_fe = self._pending_fe, (t, img_left, img_right, resolver,
-                                                    self._imu_fed)
-        if prev is not None:
-            self._frontend(*prev)
+        # this frame's id (a pending frame takes the next one first) keys
+        # the spans of its submission
+        frame_id = self.sys._frame_id + (self._pending_fe is not None)
+        with perf.span("pipeline.input", frame_id):
+            submit = getattr(self.sys.tracker, "submit_stereo_extraction", None)
+            resolver = submit(img_left, img_right) if submit else None
+            if resolver is None:
+                self._flush_pending()   # keep frame order
+                self._frontend(t, img_left, img_right, None, self._imu_fed)
+                return
+            prev, self._pending_fe = self._pending_fe, (t, img_left, img_right, resolver,
+                                                        self._imu_fed)
+            if prev is not None:
+                self._frontend(*prev)
 
     def _flush_pending(self) -> None:
         prev, self._pending_fe = self._pending_fe, None
@@ -150,7 +162,7 @@ class PipelinedSystem:
         return out
 
     def _put(self, item: _Item) -> None:
-        with self._cv:
+        with perf.span("pipeline.put_blocked", item.key), self._cv:
             while len(self._items) >= self.depth:
                 if self.drop_oldest:
                     # drop the oldest queued keyframe; its IMU samples
@@ -161,6 +173,7 @@ class PipelinedSystem:
                     self._submitted -= 1
                 else:
                     self._cv.wait()
+            item.t_put = time.perf_counter()
             self._items.append(item)
             self._submitted += 1
             self._cv.notify_all()
@@ -219,8 +232,10 @@ class PipelinedSystem:
                         return
                     item = self._items.popleft()
                     self._cv.notify_all()
+                perf.interval("pipeline.queued", item.t_put, time.perf_counter(), item.key)
                 try:
-                    self._run(item)
+                    with perf.span("pipeline.run", item.key):
+                        self._run(item)
                 except Exception as e:  # surfaced on the caller thread
                     self._err = e
                 finally:

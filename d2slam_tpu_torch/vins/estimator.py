@@ -57,7 +57,7 @@ from d2slam_tpu_torch.solver.marginalization import (
     zero_prior,
 )
 from d2slam_tpu_torch.solver.state import ImuMeas, PriorBlock, ProjMeas, VIOState
-from d2slam_tpu_torch.utils import np_lie
+from d2slam_tpu_torch.utils import np_lie, perf
 from d2slam_tpu_torch.utils.device import load_cuda_linalg, resolve_device, torch_dtype
 from d2slam_tpu_torch.utils.perf import PerfTracker
 from d2slam_tpu_torch.vins.initialization import linear_alignment
@@ -70,6 +70,7 @@ def _sync(device: torch.device) -> None:
     """Wait for the work queued on this thread's current stream (the
     pipelined runtime's backend runs the estimator on a stream of its
     own, beside the frontend's)."""
+    perf.count("estimator.host_waits")
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
 
@@ -179,7 +180,7 @@ class D2Estimator:
         self.solve_count = 0
         self.margin_count = 0
         self.lm_slot_of: Dict[int, int] = {}
-        self.perf = PerfTracker()
+        self.perf = PerfTracker("estimator")
         self.last_report = None
         # the measurements of the last solve, for a marginalization after
         # it; stale once window slots moved
@@ -208,6 +209,7 @@ class D2Estimator:
 
     @staticmethod
     def _np(x: torch.Tensor) -> np.ndarray:
+        perf.count("estimator.host_waits")
         return x.detach().cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -224,19 +226,21 @@ class D2Estimator:
                 f"IMU not available up to t={frame.stamp:.3f} "
                 f"(buffer ends {self.imubuf.t_last:.3f})"
             )
-        if not self.initialized:
-            if not self._try_init_first_pose(frame):
-                return None
-        else:
-            self._add_frame(frame)
+        with self.perf.stage("input_frame", frame.frame_id):
+            with self.perf.stage("ingest"):
+                if not self.initialized:
+                    if not self._try_init_first_pose(frame):
+                        return None
+                else:
+                    self._add_frame(frame)
+                self._ingest_observations(frame)
 
-        self._ingest_observations(frame)
+            if len(self.frames) >= self.cfg.estimator.min_solve_frames:
+                self._solve_window()
 
-        if len(self.frames) >= self.cfg.estimator.min_solve_frames:
-            self._solve_window()
-
-        self._manage_window()
-        return self.latest_odometry(frame.stamp)
+            with self.perf.stage("manage_window"):
+                self._manage_window()
+            return self.latest_odometry(frame.stamp)
 
     # ------------------------------------------------------------------
     # initialization & frame addition
